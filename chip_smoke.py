@@ -3,23 +3,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — build an E2LSHoS index, then answer query
-batches through ``SearchEngine.query(plan="fused")`` — at the SIFT1M shape
-of the paper's Table 1 (n = 1,000,000, d = 128, 256 queries, synthetic data
-from seed 0) with the ANN server's defaults (gamma = 0.8, max_L = 32, c = 2,
-w = 4, 512 B blocks), and holds it to the repo's own contracts:
+Drives the port's three paths at the SIFT1M shape of the paper's Table 1
+(n = 1,000,000, d = 128, 256 queries, synthetic data from seed 0) with the
+ANN server's defaults (gamma = 0.8, max_L = 32, c = 2, w = 4, 512 B blocks),
+and holds each to the repo's own contracts:
 
-  1. the card: name and power limit;
-  2. the three hand-written kernels (lsh_hash, bucket_probe,
-     l2_distance_gathered), built from ``src/repro_torch/csrc`` by nvcc,
-     each against its plain PyTorch version on the card at the main path's
-     shapes plus ragged ones, with its median time, its plain version's and
-     a library yardstick's;
-  3. the main path: launch counts of every kernel (each must be > 0), qps
-     and p50 per batch, the overall ratio against exact ground truth, peak
-     device memory; then the port's oracle plan on the same index, which
-     must match the fused plan on every row whose kernel hashes equal the
-     plain hashes.
+  1. the card: name and power limit; the four hand-written kernels built
+     from ``src/repro_torch/csrc`` by nvcc, one process per source;
+  2. ``[main]`` the in-memory path — build an E2LSHoS index, answer batches
+     through ``SearchEngine.query(plan="fused")``: launch counts (each of
+     its kernels > 0), qps and p50 per batch, the overall ratio against
+     exact ground truth, peak device memory, a device profile; then
+     ``[oracle]``, which must match fused on every row whose kernel hashes
+     equal the plain hashes;
+  3. ``[exact]`` the exact k-NN baseline (``baselines.exact_knn``, the dense
+     ``l2_distance`` kernel per 16,384-row block) over all n points, held to
+     the dataset's float64 ground truth;
+  4. ``[spill]`` the SIFT1M index spilled to ``--spill-dir`` (about 20 GB;
+     free space, filesystem and drive model printed first; deleted at exit),
+     then ``[external]`` ``plan="external"`` served from that file through
+     the mmap, aio and uring block stores, each cold (page cache dropped)
+     then warm: every result field equal to the fused plan's, the store's
+     reads equal to the io_count replay;
+  5. each kernel against its plain PyTorch version on the card at the
+     paths' shapes plus ragged ones, with its median time, its plain
+     version's and a library yardstick's.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -27,8 +35,12 @@ are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import faulthandler
+import glob
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,6 +54,11 @@ MARGIN = 1e-4               # hashes this far from a floor() boundary must agree
 K = 10
 N_QUERIES = 256             # the batch of the main path and of every kernel shape
 REPEATS = 20                # timed batches per batch size
+EXACT_BLOCK = 16384         # exact_knn's database rows per dense-kernel launch
+GT_TOL = 1e-3               # exact scan vs float64 truth (fp32 expansion cancels)
+BACKENDS = ("mmap", "aio", "uring")
+QD = 32                     # queue depth of the aio and uring block stores
+WATCHDOG_S = 1100           # the whole run's budget, builds included
 
 
 class SmokeFailure(RuntimeError):
@@ -82,11 +99,267 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def profile_batches(torch, run, p50_s, n_prof=5, **labels):
+    """Where a batch's time goes: device busy time from the profiler against
+    the batch's wall p50 (single stream, so busy = sum of device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            run()
+        torch.cuda.synchronize()
+    busy = {}
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in dev_events:
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / n_prof
+    busy_ms = sum(busy.values()) / 1e3
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    say("profile", **labels, batch=N_QUERIES, device_busy_ms=f"{busy_ms:.4f}",
+        device_events=len(dev_events) // n_prof,
+        idle_share=f"{1 - busy_ms / (p50_s * 1e3):.4f}" if busy else "not measured",
+        top_us=json.dumps({k[:60]: round(v, 2) for k, v in top}))
+
+
+def storage_info(path):
+    """Filesystem, mount source and the drives' models behind ``path``: a
+    storage number names its drive as a card number names its card."""
+    path = str(pathlib.Path(path).resolve())
+    best = ("?", "/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            src, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[1]):
+                best = (src, mnt, fstype)
+    models = {}
+    for m in sorted(glob.glob("/sys/block/*/device/model")):
+        models[m.split("/")[3]] = pathlib.Path(m).read_text().strip()
+    return dict(fs=best[2], source=best[0], mount=best[1], drive_models=models)
+
+
+def knn_agreement(ids, dists, want_ids, want_dists, tol):
+    """(ok, swaps, max_rel_err): distances allclose at tol; ids may differ
+    only at ranks where the two distances tie within tol."""
+    import numpy as np
+    close = np.isclose(dists, want_dists, rtol=tol, atol=tol)
+    differ = ids != want_ids
+    rel = np.abs(dists - want_dists) / np.maximum(np.abs(want_dists), 1e-30)
+    return bool(close.all()), int(differ.sum()), float(rel.max())
+
+
+def exact_phase(torch, ix, queries, ds, res, kernels):
+    """The exact k-NN baseline over every database row, counts read just
+    after; held to the dataset's float64 ground truth."""
+    from repro_torch.baselines import exact_knn
+    from repro_torch.core import overall_ratio
+
+    for kern in kernels:
+        kern.launches = 0
+    times = []
+    for _ in range(2):          # the first call loads the kernel's library
+        t0 = time.perf_counter()
+        ids, dists = exact_knn(ix.db, queries, k=K, block=EXACT_BLOCK, device=ix.db.device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {kern.name: kern.launches for kern in kernels}
+    check(launches["l2_distance_dense"] > 0,
+          f"exact_knn never launched the dense kernel: {launches}")
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    check(ids.shape == (queries.shape[0], K) and bool((dists >= 0).all()),
+          "exact_knn results malformed")
+    ok, swaps, rel = knn_agreement(ids, dists, ds.gt_ids[:, :K], ds.gt_dists[:, :K], GT_TOL)
+    fused = res.dists.cpu().numpy()
+    say("exact", n=ix.db.shape[0], queries=queries.shape[0], k=K, block=EXACT_BLOCK,
+        launches=json.dumps(launches), first_s=f"{times[0]:.4f}", s=f"{times[1]:.4f}",
+        tie_swaps_vs_float64=swaps, max_rel_err=f"{rel:.3e}", tol=GT_TOL,
+        fused_ratio_vs_float64=f"{overall_ratio(fused, ds.gt_dists[:, :K]):.6f}",
+        fused_ratio_vs_exact_knn=f"{overall_ratio(fused, dists):.6f}")
+    check(ok, f"exact_knn distances differ from the float64 truth beyond {GT_TOL}")
+    return launches
+
+
+def spill_phase(torch, idx, path):
+    """Spill the index to ``path``; returns its header. Prints free space,
+    the planned size and the storage behind the directory first."""
+    from repro_torch.storage import read_header
+
+    spill_dir = path.parent
+    ix = idx.index.arrays
+    planned = spill_bytes(ix)
+    free = shutil.disk_usage(spill_dir).free
+    say("spill", dir=json.dumps(str(spill_dir)), free_bytes=free, planned_bytes=planned,
+        n=ix.db.shape[0], **{k: json.dumps(v) for k, v in storage_info(spill_dir).items()})
+    t0 = time.perf_counter()
+    idx.index.spill(path)
+    t1 = time.perf_counter()
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)            # dirty pages cannot be dropped from the cache
+    finally:
+        os.close(fd)
+    t2 = time.perf_counter()
+    hdr = read_header(path)
+    size = path.stat().st_size
+    say("spill", file_bytes=size, blocks_bytes=hdr.sections["blocks"]["nbytes"],
+        block_rows=hdr.nb, blkp=hdr.blkp, lane_pad=hdr.lane_pad, spill_s=f"{t1 - t0:.3f}",
+        fsync_s=f"{t2 - t1:.3f}", write_gb_per_s=f"{size / (t2 - t0) / 1e9:.3f}")
+    return hdr
+
+
+def spill_bytes(ix) -> int:
+    """The spill file's size: every leaf once (the fingerprints as uint16),
+    plus page padding between the sections."""
+    leaves = sum(getattr(ix, f).nbytes for f in ix.array_fields())
+    return leaves - ix.entries_fp.nbytes // 2 + 12 * 4096
+
+
+def spill_n(ix, free: int) -> int:
+    """The largest n in {10^6, 10^5} whose spill the disk can hold with a
+    10 % margin (the file scales with n), or 0."""
+    n = ix.db.shape[0]
+    for cand in (n, n // 10):
+        if spill_bytes(ix) * cand / n * 1.1 < free:
+            return cand
+    return 0
+
+
+def rungs_json(ps):
+    return json.dumps([dict(t=r.t, blocks=r.blocks_fetched, fetch_ms=round(r.fetch_ms, 3),
+                            overlap_ms=round(r.overlap_ms, 3),
+                            compute_wait_ms=round(r.compute_wait_ms, 3))
+                       for r in ps.rungs])
+
+
+def external_phase(torch, engine, params, path, hdr, queries, kernels):
+    """plan="external" from the spill file through each backend: cold (page
+    cache dropped), then REPEATS warm batches; every result field equal to
+    the fused plan's, the store's reads equal to the io_count replay."""
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.io_count import nio_for_block_size
+    from repro_torch.storage import drop_page_cache, load_external, page_cache_residency
+
+    fields = ("ids", "dists", "found", "radii_searched", "nio_table", "nio_blocks",
+              "cands_checked", "probe_sizes")
+    want = engine.query(queries, plan="fused", k=K, collect_probe_sizes=True)
+    torch.cuda.synchronize()
+    Q = queries.shape[0]
+    blocks_len = int(hdr.sections["blocks"]["nbytes"])
+    for kern in kernels:
+        kern.launches = 0
+    for backend in BACKENDS:
+        t0 = time.perf_counter()
+        ext = load_external(path, backend=backend, qd=QD, device=queries.device)
+        open_s = time.perf_counter() - t0
+        try:
+            store = ext.store
+            ext_engine = SearchEngine(ext)
+            dropped = drop_page_cache(path)
+            resid = page_cache_residency(path, hdr.blocks_offset, blocks_len)
+            t0 = time.perf_counter()
+            cold = ext_engine.query(queries, k=K, collect_probe_sizes=True)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            ps = ext.last_plan_stats
+            say("external", backend=backend, served_by=store.name,
+                fallback_from=getattr(store, "fallback_from", None),
+                fallback_reason=json.dumps(getattr(store, "fallback_reason", None)),
+                o_direct=getattr(store, "o_direct", None), qd=getattr(store, "qd", 1),
+                open_s=f"{open_s:.3f}", page_cache_dropped=dropped,
+                blocks_resident_after_drop=f"{resid:.4f}")
+            for name in fields:
+                check(torch.equal(getattr(cold, name), getattr(want, name)),
+                      f"external ({backend}) differs from fused on {name}")
+            replay = nio_for_block_size(cold.probe_sizes.cpu().numpy(), s_cap=params.S,
+                                        block_bytes=params.block_bytes)
+            nio_blocks = int(cold.nio_blocks.sum())
+            check(ps.measured_nio_blocks == nio_blocks == ps.nio_blocks_counted,
+                  f"store reads {ps.measured_nio_blocks} != sum(nio_blocks) {nio_blocks}")
+            check(bool((replay == cold.nio.cpu().numpy()).all()),
+                  "the io_count replay differs from the measured N_io")
+            say("external", backend=backend, run="cold", ms=f"{cold_s * 1e3:.3f}",
+                qps=f"{Q / cold_s:.1f}", blocks_read=ps.io.reads,
+                device_reads=ps.io.device_reads, bytes_read=ps.io.device_reads * hdr.block_row_bytes,
+                cache_hit_rate=f"{ps.cache_hit_rate:.4f}", prefetch_reads=ps.io.prefetch_reads,
+                replay_equal=True, nio_blocks_total=nio_blocks, setup_ms=f"{ps.setup_ms:.3f}",
+                rungs=rungs_json(ps))
+            times, io = [], []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                out = ext_engine.query(queries, k=K)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                io.append(ext.last_plan_stats.io)
+            for name in fields[:-1]:
+                check(torch.equal(getattr(out, name), getattr(want, name)),
+                      f"external ({backend}, warm) differs from fused on {name}")
+            ps = ext.last_plan_stats
+            p50 = statistics.median(times)
+            say("external", backend=backend, run="warm", batches=REPEATS,
+                p50_ms=f"{p50 * 1e3:.3f}", qps=f"{Q * len(times) / sum(times):.1f}",
+                blocks_read=ps.io.reads, device_reads=sum(x.device_reads for x in io),
+                cache_hit_rate=f"{sum(x.cache_hits for x in io) / sum(x.reads for x in io):.4f}",
+                setup_ms=f"{ps.setup_ms:.3f}", rungs=rungs_json(ps))
+            profile_batches(torch, lambda: ext_engine.query(queries, k=K), p50,
+                            n_prof=3, plan="external", backend=backend)
+        finally:
+            ext.close()
+    launches = {kern.name: kern.launches for kern in kernels}
+    say("external", launches=json.dumps(launches))
+    check(launches["lsh_hash"] > 0 and launches["l2_distance"] > 0,
+          f"plan=external did not launch its kernels: {launches}")
+    check(launches["bucket_probe"] == 0 and launches["l2_distance_dense"] == 0,
+          f"plan=external launched a kernel off its path: {launches}")
+
+
+def dense_kernel_phase(torch, dev, flush):
+    """The dense kernel against its plain version at the exact scan's block
+    shape plus ragged and float16 ones (Gaussian inputs, the reference's
+    test), and its times."""
+    from repro_torch.kernels import l2_distance, l2_distance_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    for nq, nc, d, dtype in ((N_QUERIES, EXACT_BLOCK, 128, torch.float32),
+                             (1, EXACT_BLOCK - 3, 128, torch.float32),
+                             (33, 190, 100, torch.float32), (33, 190, 128, torch.float16)):
+        q = torch.randn((nq, d), generator=gen, device=dev).to(dtype)
+        x = torch.randn((nc, d), generator=gen, device=dev).to(dtype)
+        got, want = l2_distance(q, x), l2_distance_ref(q, x)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        say("l2_distance_dense", NQ=nq, NC=nc, D=d, dtype=str(dtype).split(".")[1],
+            max_abs_err=f"{err:.3e}")
+        check(got.dtype == torch.float32 and bool(torch.allclose(got, want, rtol=TOL, atol=TOL)),
+              f"l2_distance disagrees with its plain version at {nq}x{nc}x{d} {dtype}")
+    NQ, NC, D = N_QUERIES, EXACT_BLOCK, 128
+    q = torch.randn((NQ, D), generator=gen, device=dev)
+    x = torch.randn((NC, D), generator=gen, device=dev)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the yardstick")
+
+    def library():
+        qn2, xn2 = (q * q).sum(-1), (x * x).sum(-1)
+        return torch.addmm(qn2[:, None] + xn2[None, :], q, x.T, alpha=-2).clamp_min_(0)
+
+    t_k = median_ms(torch, lambda: l2_distance(q, x), flush=flush)
+    t_p = median_ms(torch, lambda: l2_distance_ref(q, x), flush=flush)
+    t_l = median_ms(torch, library, flush=flush)
+    b_ms, b_by = bound_ms(4 * (NQ * D + NC * D + NQ * NC),
+                          2 * NQ * NC * D + 2 * (NQ + NC) * D + 3 * NQ * NC)
+    say("l2_distance_dense", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+        library_addmm_ms=f"{t_l:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        tflops=f"{2 * NQ * NC * D / t_k / 1e9:.2f}")
+    return worst, t_k, t_p, t_l, b_ms, b_by
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database size")
+    ap.add_argument("--spill-dir", default=str(ROOT / "build" / "spill"),
+                    help="directory on local storage for the spill file (not a "
+                         "tmpfs: /tmp may be RAM)")
     args = ap.parse_args(argv)
 
+    # a run that outlives its budget dumps every thread's stack and exits 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -106,7 +379,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.lsh_hash.ref import floor_margin
 
-    # ---- phase 1: the card ------------------------------------------------
+    # ---- the card and the build ----------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -127,7 +400,8 @@ def main(argv=None) -> int:
         queries=ds.queries.shape[0], host_s=f"{time.perf_counter() - t0:.3f}")
     say("reduced", cuts="none" if args.n == 1_000_000 else f"n={args.n}")
 
-    # ---- phase 3: the main path (counts 0 just before, read just after) ----
+    # ---- the main path (counts 0 just before, read just after) -------------
+    t_phase = time.perf_counter()
     for kern in KERNELS:
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -162,7 +436,7 @@ def main(argv=None) -> int:
     res1, times1 = timed_batches(queries[:1])
     launches = {kern.name: kern.launches for kern in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ("lsh_hash", "bucket_probe", "l2_distance")),
           f"a kernel of the main path never launched: {launches}")
     ratio = overall_ratio(res.dists.cpu().numpy(), ds.gt_dists[:, :K])
     Q = queries.shape[0]
@@ -177,30 +451,13 @@ def main(argv=None) -> int:
         peak_bytes=peak)
     check(res.ids.shape == (Q, K) and bool(torch.isfinite(res.dists[res.found]).all()),
           "fused results malformed")
+    check(launches["l2_distance_dense"] == 0, "the fused plan launched the dense kernel")
     check(ratio < 1.5, f"overall ratio {ratio} is not an ANN result")
     lone = res1.rows_agree(res.slice_rows(0, 1), tol=TOL)
     check(bool(lone.all()), "a lone query differs from the same row in the batch")
 
-    # where a batch's time goes: device busy time from the profiler against
-    # the batch's wall p50 (single stream, so busy = sum of device events)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            engine.query(queries, plan="fused", k=K)
-        torch.cuda.synchronize()
-    busy = {}
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    for e in dev_events:
-        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / n_prof
-    busy_ms = sum(busy.values()) / 1e3
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    say("profile", batch=Q, device_busy_ms=f"{busy_ms:.4f}",
-        device_events=len(dev_events) // n_prof,
-        idle_share=(f"{1 - busy_ms / (statistics.median(times) * 1e3):.4f}" if busy
-                    else "not measured"),
-        top_us=json.dumps({k[:60]: round(v, 2) for k, v in top}))
+    profile_batches(torch, lambda: engine.query(queries, plan="fused", k=K),
+                    statistics.median(times), plan="fused")
 
     # the oracle plan on the same index, held to the fused plan on every row
     # whose kernel hashes equal the plain hashes
@@ -216,8 +473,42 @@ def main(argv=None) -> int:
         tie_swaps=swaps, remaining_rows=int((~agree).sum()))
     check(bool((matched == agree).all()),
           f"{int((agree & ~matched).sum())} rows with agreeing hashes differ from the oracle")
+    say("main", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
-    # ---- phase 2: each kernel against its plain version at the main path's shapes
+    # ---- [exact]: the exact k-NN baseline's path ----------------------------
+    t_phase = time.perf_counter()
+    exact_launches = exact_phase(torch, ix, queries, ds, res, KERNELS)
+    say("exact", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # ---- [spill] and [external]: plan="external" from a spill file ---------
+    t_phase = time.perf_counter()
+    spill_dir = pathlib.Path(args.spill_dir)
+    spill_dir.mkdir(parents=True, exist_ok=True)
+    # a run ended by its watchdog or a kill skips the unlink below: clear what
+    # such a run left before counting the free bytes
+    for stale in spill_dir.glob("sift*.e2l"):
+        stale.unlink(missing_ok=True)
+    free = shutil.disk_usage(spill_dir).free
+    n_sp = spill_n(ix, free)
+    check(n_sp > 0, f"{spill_dir} has {free} bytes free: not enough for a spill at n=10^5")
+    sp_idx, sp_engine = idx, engine
+    if n_sp != ix.db.shape[0]:
+        say("reduced", cuts=f"spill_n={n_sp}", reason=f"free_bytes={free}")
+        sp_idx = E2LSHoS.build(ds.db[:n_sp], gamma=0.8, max_L=32, seed=0, device=dev)
+        sp_engine = SearchEngine(sp_idx)
+    path = spill_dir / "sift.e2l"
+    try:
+        hdr = spill_phase(torch, sp_idx, path)
+        say("spill", seconds=f"{time.perf_counter() - t_phase:.3f}")
+        t_phase = time.perf_counter()
+        external_phase(torch, sp_engine, sp_idx.params, path, hdr, queries, KERNELS)
+        say("external", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    finally:
+        path.unlink(missing_ok=True)
+    del sp_idx, sp_engine
+    t_phase = time.perf_counter()
+
+    # ---- each kernel against its plain version at its path's shapes
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     record = []
 
@@ -320,6 +611,15 @@ def main(argv=None) -> int:
                        replaces="src/repro/kernels/l2_distance/kernel.py:66",
                        launches=launches["l2_distance"], max_abs_err=worst, ms=t_k,
                        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+
+    # l2_distance (dense): one block of the exact scan
+    worst, t_k, t_p, t_l, b_ms, b_by = dense_kernel_phase(torch, dev, flush)
+    record.append(dict(name="l2_distance_dense", route="cuda",
+                       source="src/repro_torch/csrc/l2_distance_dense.cu",
+                       replaces="src/repro/kernels/l2_distance/kernel.py:31",
+                       launches=exact_launches["l2_distance_dense"], max_abs_err=worst,
+                       ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    say("kernels", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

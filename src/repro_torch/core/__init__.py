@@ -5,7 +5,7 @@ from .hashing import HashFamily, make_hash_family, hash_points_radius_determinis
 from .index import E2LSHIndex, IndexArrays, IndexStats, build_index
 from .query import QueryConfig, QueryResult, SearchEngine
 from .e2lshos import E2LSHoS, measured_query
-from .tuning import overall_ratio
+from .tuning import TuneResult, overall_ratio, tune_gamma
 from . import io_count, storage
 
 __all__ = [
@@ -13,5 +13,6 @@ __all__ = [
     "HashFamily", "make_hash_family", "hash_points_radius_deterministic",
     "E2LSHIndex", "IndexArrays", "IndexStats", "build_index",
     "QueryConfig", "QueryResult", "SearchEngine",
-    "E2LSHoS", "measured_query", "overall_ratio", "io_count", "storage",
+    "E2LSHoS", "measured_query", "overall_ratio", "tune_gamma", "TuneResult",
+    "io_count", "storage",
 ]

@@ -94,7 +94,7 @@ class E2LSHoS:
               collect_probe_sizes: bool = False, s_cap: Optional[int] = None,
               block_objs: Optional[int] = None, valid=None) -> QueryResult:
         """Run a query batch through the SearchEngine (plan "fused" by
-        default, or "oracle")."""
+        default, "host" or "oracle")."""
         return self.engine.query(queries, plan=plan, k=k,
                                  collect_probe_sizes=collect_probe_sizes,
                                  s_cap=s_cap, block_objs=block_objs, valid=valid)

@@ -22,6 +22,7 @@ same family and ``lane_pad`` it yields the reference's leaves exactly.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import Optional
 
 import numpy as np
@@ -133,13 +134,28 @@ class IndexArrays:
         return IndexArrays(**{f: conv(f) for f in IndexArrays.array_fields()},
                            block_objs=int(block_objs), lane_pad=int(lane_pad))
 
+    def leaf_numpy(self, name: str) -> np.ndarray:
+        """One leaf as a numpy array in the reference's dtype (rm uint32,
+        entries_fp uint16, the rest as held)."""
+        arr = getattr(self, name).cpu().numpy()
+        if name == "rm":
+            return arr.view(np.uint32)
+        if name == "entries_fp":
+            return arr.astype(np.uint16)
+        return arr
+
     def to_numpy(self) -> dict:
-        """The leaves as numpy arrays in the reference's dtypes (rm uint32,
-        entries_fp uint16)."""
-        out = {f: getattr(self, f).cpu().numpy() for f in self.array_fields()}
-        out["rm"] = out["rm"].view(np.uint32)
-        out["entries_fp"] = out["entries_fp"].astype(np.uint16)
-        return out
+        """The leaves as numpy arrays in the reference's dtypes."""
+        return {f: self.leaf_numpy(f) for f in self.array_fields()}
+
+    def spill(self, path, *, params=None, stats=None) -> None:
+        """Write this index to ``path`` in the external-memory spill format,
+        byte for byte the reference's (``repro_torch.storage.format``).
+        ``load_arrays`` round-trips every leaf; ``load_external`` serves the
+        file under ``plan="external"`` when ``params`` are given (as
+        ``E2LSHIndex.spill`` gives them)."""
+        from ..storage.format import spill_index
+        spill_index(path, self, params=params, stats=stats)
 
     def with_block_objs(self, block_objs: int,
                         lane_pad: Optional[int] = None) -> "IndexArrays":
@@ -179,6 +195,64 @@ class E2LSHIndex:
     family: HashFamily
     arrays: IndexArrays
     stats: IndexStats
+
+    # A checkpoint holds the CSR view and the layout metadata only, as the
+    # reference's does: load() re-derives the block store (blockify_entries
+    # reproduces it exactly) and db_norm2. Either package loads the other's.
+    _SAVED_FIELDS = ("a", "b", "rm", "table_off", "table_cnt",
+                     "entries_id", "entries_fp", "db")
+
+    def save(self, path) -> None:
+        """Write an ``.npz`` checkpoint in the reference's layout (reference
+        dtypes; params and stats as pickled dicts)."""
+        ix = self.arrays
+        p = pathlib.Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        stats = None if self.stats is None else dataclasses.asdict(self.stats)
+        np.savez_compressed(
+            p, **{name: ix.leaf_numpy(name) for name in self._SAVED_FIELDS},
+            layout_meta=np.asarray([ix.block_objs, ix.lane_pad], np.int64),
+            params=np.array([dataclasses.asdict(self.params)], dtype=object),
+            stats=np.array([stats], dtype=object))
+
+    def spill(self, path) -> None:
+        """Spill to the external-memory format with params and build stats,
+        so ``repro_torch.storage.load_external(path)`` serves the file."""
+        self.arrays.spill(path, params=self.params, stats=self.stats)
+
+    @staticmethod
+    def load(path, *, device=None) -> "E2LSHIndex":
+        """Load an ``.npz`` checkpoint (either package's) onto ``device``
+        (None -> cuda), re-blockified at its saved layout. Its params and
+        stats are pickled dicts, so load only checkpoints this program or
+        the reference wrote."""
+        dev = resolve_device(device)
+        z = np.load(path, allow_pickle=True)
+        pdict = dict(z["params"][0])
+        pdict["radii"] = tuple(pdict["radii"])
+        params = LSHParams(**pdict)
+        sdict = z["stats"][0]
+        family = HashFamily.from_numpy(z["a"], z["b"], z["rm"], w=params.w,
+                                       u=params.u, fp_bits=params.fp_bits,
+                                       device=dev)
+        if "layout_meta" not in z.files:
+            raise ValueError(f"{path}: checkpoint has no layout_meta "
+                             "(block_objs, lane_pad); cannot re-blockify")
+        bo, lp = (int(v) for v in z["layout_meta"])
+        db = np.ascontiguousarray(z["db"], np.float32)
+
+        def leaf(name, dtype):
+            return torch.from_numpy(np.ascontiguousarray(z[name]).astype(dtype)).to(dev)
+
+        arrays = IndexArrays.from_csr(
+            a=family.a, b=family.b, rm=family.rm,
+            table_off=leaf("table_off", np.int32), table_cnt=leaf("table_cnt", np.int32),
+            entries_id=leaf("entries_id", np.int32),
+            entries_fp=leaf("entries_fp", np.int32),
+            db=torch.from_numpy(db).to(dev),
+            db_norm2=torch.from_numpy(_norm2(db)).to(dev), block_objs=bo, lane_pad=lp)
+        return E2LSHIndex(params=params, family=family, arrays=arrays,
+                          stats=None if sdict is None else IndexStats(**sdict))
 
 
 def _pack_radius_table(bucket: torch.Tensor, fp: torch.Tensor, u: int):

@@ -9,9 +9,9 @@ For each radius R in (1, c, c^2, ...):
      (Step 3), merge them into the running top-k (dedup by id), and mark the
      query done when k results lie within c*R.
 
-One entry point over two plans of one single-device index:
+One entry point over the plans of one single-device index:
 
-    engine = SearchEngine(index)             # index: E2LSHoS or E2LSHIndex
+    engine = SearchEngine(index)   # index: E2LSHoS, E2LSHIndex or ExternalIndex
     res = engine.query(qs, plan="fused")
 
 * ``plan="fused"`` — the production plan. A hash stage hashes the batch for
@@ -26,6 +26,20 @@ One entry point over two plans of one single-device index:
 * ``plan="oracle"`` — the reference: every radius run with done-masking,
   per-radius plain hashing and a dense gather over the CSR view. Simple,
   obviously correct, and the parity target of the fused plan.
+* ``plan="host"`` — the oracle's radius step, one call and one host sync per
+  radius for the early exit: the pre-fusion host-driven loop, kept as a
+  baseline of dispatch overhead. Same results as the oracle.
+
+Over an ``ExternalIndex`` (``repro_torch.storage.load_external``: block rows
+on disk, hash tables resident on the device):
+
+* ``plan="external"`` — hashing and table lookups on the device, the chain
+  walk on the host through the block store, the distance fold back on the
+  device with the next rung's reads prefetched under it
+  (``repro_torch.storage.external``). Equal to ``plan="fused"`` on a spilled
+  copy of the same index, bit for bit;
+* ``plan="sharded_external"`` — the same plan over block rows striped across
+  per-shard files (``repro_torch.storage.sharded``).
 
 Masked rows (``valid=False``, a serving queue's padding) are inert: they
 start done, probe nothing, count zero I/O and report ``found=False``.
@@ -48,7 +62,8 @@ from ..kernels.lsh_hash.ops import lsh_hash_all_radii
 from ..kernels.lsh_hash.ref import lsh_hash_ref
 
 __all__ = ["QueryConfig", "QueryResult", "SearchEngine", "fused_plan_body",
-           "oracle_plan_body", "hash_stage", "table_lookup", "probe_stage"]
+           "host_plan_body", "oracle_plan_body", "hash_stage", "table_lookup",
+           "probe_stage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,6 +406,25 @@ def oracle_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
     return _result_from_state(state, cfg, valid).slice_rows(0, realQ)
 
 
+def host_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
+                   valid=None) -> QueryResult:
+    """HOST plan: the oracle's radius step, one call plus one device->host
+    sync per radius to leave once every query is done. Radii after that
+    change nothing in the oracle (every row is done, so nothing is probed or
+    counted), so the results are the oracle's."""
+    queries, valid, realQ = _pad_min_q(queries, valid)
+    queries, qnorm2 = _prep_queries(queries)
+    state = _init_state(queries.shape[0], cfg, queries.device, valid)
+    thresh2 = _thresholds(cfg, queries.device)
+    for t, radius in enumerate(cfg.radii):
+        cid, cd2, st = _probe_radius(ix, queries, qnorm2, t, float(radius), cfg,
+                                     ~state[2])
+        state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
+        if bool(state[2].all()):
+            break
+    return _result_from_state(state, cfg, valid).slice_rows(0, realQ)
+
+
 def table_lookup(ix: IndexArrays, bucket_all: torch.Tensor, cfg: QueryConfig):
     """Bucket sizes and chain-head rows for every (radius, query, table) in
     two gathers. bucket_all [r, Q, L] -> (cnt_all, head_all) [r, Q, L]."""
@@ -444,7 +478,8 @@ def fused_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
     return _result_from_state(state, cfg, valid).slice_rows(0, realQ)
 
 
-_PLANS = {"fused": fused_plan_body, "oracle": oracle_plan_body}
+_PLANS = {"fused": fused_plan_body, "host": host_plan_body,
+          "oracle": oracle_plan_body}
 
 
 # --------------------------------------------------------------------------
@@ -452,31 +487,67 @@ _PLANS = {"fused": fused_plan_body, "oracle": oracle_plan_body}
 # --------------------------------------------------------------------------
 
 class SearchEngine:
-    """One query entry point over the single-index plans.
+    """One query entry point over the plans of one index.
 
-    ``index`` is an ``E2LSHoS`` facade or an ``E2LSHIndex``. ``device``
-    (None -> cuda) is where the plans run; the index moves there if it lies
-    elsewhere. Re-blockified layouts for the ``block_objs`` timing knob are
-    memoized.
+    ``index`` is an ``E2LSHoS`` facade, an ``E2LSHIndex`` or an
+    ``ExternalIndex`` (``repro_torch.storage``; a striped one serves
+    ``plan="sharded_external"``). ``device`` (None -> cuda) is where an
+    in-memory index's plans run; the index moves there if it lies elsewhere.
+    An external index runs on the device it was loaded on. Re-blockified
+    layouts for the ``block_objs`` timing knob are memoized.
     """
 
     PLANS = tuple(_PLANS)
+    EXTERNAL_PLANS = ("external",)
+    SHARDED_EXTERNAL_PLANS = ("sharded_external",)
 
     def __init__(self, index, *, device=None):
         if hasattr(index, "index") and hasattr(index, "tier"):  # E2LSHoS
             index = index.index
-        self.device = resolve_device(device)
         self.params: LSHParams = index.params
+        self._external = None
+        if hasattr(index, "store") and hasattr(index, "blocks_head"):
+            # an ExternalIndex: its block rows live on disk behind the
+            # BlockStore, its resident tensors on the device it was loaded on
+            if device is not None and torch.device(device).type != index.device.type:
+                raise ValueError(f"the external index lies on {index.device}; "
+                                 f"load it with load_external(..., device={device!r})")
+            self.device = index.device
+            self._external = index
+            self._external_striped = hasattr(index, "num_shards")
+            return
+        self.device = resolve_device(device)
         base = index.arrays.to(self.device)
         self._base_block_objs = base.block_objs
         self._by_block_objs = {base.block_objs: base}
 
     @property
+    def plans(self) -> tuple:
+        if self._external is not None:
+            return (self.SHARDED_EXTERNAL_PLANS if self._external_striped
+                    else self.EXTERNAL_PLANS)
+        return self.PLANS
+
+    @property
     def default_plan(self) -> str:
-        return "fused"
+        return self.plans[0]
+
+    @property
+    def external(self):
+        """The engine's ``ExternalIndex`` (None for an in-memory engine):
+        ``.last_plan_stats`` (the last call's instrumentation),
+        ``.plan_totals`` (the accumulating roll-up) and ``.store`` (the I/O
+        ledger)."""
+        return self._external
 
     def arrays(self, block_objs: Optional[int] = None) -> IndexArrays:
         """The index tensors, re-blockified (and memoized) on demand."""
+        if self._external is not None:
+            raise ValueError(
+                "an external index keeps its block rows on disk; there is no "
+                "in-memory IndexArrays to serve. Use plan=\"external\" (the "
+                "BlockStore streams the rows), or load the whole index with "
+                f"repro_torch.storage.load_arrays({self._external.path!r})")
         bo = int(block_objs or self._base_block_objs)
         if bo not in self._by_block_objs:
             self._by_block_objs[bo] = (
@@ -502,25 +573,40 @@ class SearchEngine:
             valid = torch.from_numpy(np.asarray(valid, dtype=bool))
         return valid.to(self.device, torch.bool)
 
-    def _plan(self, plan: Optional[str]):
+    def _resolve(self, plan: Optional[str], *, k: int = 1,
+                 block_objs: Optional[int] = None, **kw):
+        """(run, target, cfg) of one plan: the plan body, the index it runs
+        over (re-blockified IndexArrays, or the ExternalIndex) and its
+        config. An external index's block size is fixed at spill time; its
+        plan rejects any other ``block_objs``."""
         plan = plan or self.default_plan
-        if plan not in _PLANS:
-            raise ValueError(f"unknown plan {plan!r}; expected one of {self.PLANS}")
-        return plan, _PLANS[plan]
+        if plan not in self.plans:
+            kind = "an external" if self._external is not None else "an in-memory"
+            raise ValueError(f"unknown plan {plan!r} for {kind} index; expected "
+                             f"one of {self.plans}")
+        if self._external is not None:
+            if self._external_striped:
+                from ..storage.sharded import sharded_external_plan as run
+            else:
+                from ..storage.external import external_plan as run
+            bo = self._external.block_objs if block_objs is None else block_objs
+            return run, self._external, self.config(k=k, block_objs=bo, **kw)
+        cfg = self.config(k=k, block_objs=block_objs, **kw)
+        return (_PLANS[plan], self.arrays(cfg.block_objs if plan == "fused" else None),
+                cfg)
 
     def query(self, queries, *, plan: Optional[str] = None, k: int = 1,
               s_cap: Optional[int] = None, block_objs: Optional[int] = None,
               collect_probe_sizes: bool = False, valid=None) -> QueryResult:
-        """Run a query batch under the selected plan ("fused" or "oracle").
+        """Run a query batch under the selected plan (None: "fused" for an
+        in-memory index, "external" for an external one).
 
         valid: optional [Q] bool mask for padded serving batches — masked rows
         are inert and the unmasked rows match an unpadded dispatch.
         """
-        plan, run = self._plan(plan)
-        cfg = self.config(k=k, collect_probe_sizes=collect_probe_sizes,
-                          s_cap=s_cap, block_objs=block_objs)
-        ix = self.arrays(cfg.block_objs if plan == "fused" else None)
-        return run(ix, self._as_queries(queries), cfg, self._as_valid(valid))
+        run, target, cfg = self._resolve(plan, k=k, s_cap=s_cap, block_objs=block_objs,
+                                         collect_probe_sizes=collect_probe_sizes)
+        return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
 
     def make_plan_fn(self, *, plan: Optional[str] = None, k: int = 1,
                      masked: bool = False, **kw):
@@ -529,13 +615,11 @@ class SearchEngine:
 
         masked=False: ``fn(queries) -> QueryResult``;
         masked=True:  ``fn(queries, valid) -> QueryResult``."""
-        plan, run = self._plan(plan)
-        cfg = self.config(k=k, **kw)
-        ix = self.arrays(cfg.block_objs if plan == "fused" else None)
+        run, target, cfg = self._resolve(plan, k=k, **kw)
         if masked:
             def fn(queries, valid):
-                return run(ix, self._as_queries(queries), cfg, self._as_valid(valid))
+                return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
         else:
             def fn(queries):
-                return run(ix, self._as_queries(queries), cfg)
+                return run(target, self._as_queries(queries), cfg)
         return cfg, fn

@@ -18,6 +18,7 @@ _SCRIPT = """
 import sys
 import numpy as np
 from repro_torch.core import E2LSHoS, SearchEngine
+import repro_torch.baselines, repro_torch.storage, repro_torch.telemetry
 rng = np.random.default_rng(0)
 db = rng.normal(size=(500, 8)).astype(np.float32)
 idx = E2LSHoS.build(db, gamma=0.7, max_L=4, device="cpu")
@@ -66,3 +67,23 @@ def test_default_device_is_cuda_and_never_falls_back():
     idx = E2LSHoS.build(db, max_L=2, device="cpu")
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         SearchEngine(idx)
+
+
+def test_storage_and_exact_entry_points_default_to_cuda(tmp_path):
+    """load_external and exact_knn run on the card by default; without one
+    they raise rather than carry on on the host."""
+    from repro_torch.baselines import exact_knn
+    from repro_torch.core import E2LSHoS
+    from repro_torch.storage import load_arrays, load_external
+
+    db = np.random.default_rng(2).normal(size=(300, 4)).astype(np.float32)
+    E2LSHoS.build(db, max_L=2, device="cpu").index.spill(tmp_path / "ix.e2l")
+    if torch.cuda.is_available():
+        with load_external(tmp_path / "ix.e2l", backend="mem") as ext:
+            assert ext.device.type == "cuda"
+        return
+    for call in (lambda: load_external(tmp_path / "ix.e2l", backend="mem"),
+                 lambda: load_arrays(tmp_path / "ix.e2l"),
+                 lambda: exact_knn(db, db[:3], k=2)):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()

@@ -118,3 +118,36 @@ def test_make_hash_family_is_seeded_and_odd():
     assert (rm & 1).all() and rm.dtype == np.uint32
     assert ((f1.b >= 0) & (f1.b < 1)).all()
     assert (f1.r, f1.L, f1.m, f1.d) == (2, 3, 4, 5)
+
+
+def test_npz_checkpoint_loads_both_ways(ref_index, port_params, tmp_path):
+    """A reference ``.npz`` checkpoint loads in the port (re-blockified at its
+    saved layout, leaf for leaf), and a port checkpoint in the reference."""
+    from repro.core.index import E2LSHIndex as RefIndex
+    from repro_torch.core import E2LSHIndex, IndexStats
+
+    ref_leaves = _leaves(ref_index.arrays)
+    ref_index.save(tmp_path / "ref.npz")
+    port = E2LSHIndex.load(tmp_path / "ref.npz", device="cpu")
+    assert port.params == port_params
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref_index.stats)
+    assert (port.arrays.block_objs, port.arrays.lane_pad) == (
+        ref_index.arrays.block_objs, ref_index.arrays.lane_pad)
+    _assert_leaves_equal(port.arrays, ref_leaves)
+    assert torch.equal(port.family.rm, port.arrays.rm)
+
+    port.save(tmp_path / "port.npz")
+    back = RefIndex.load(tmp_path / "port.npz")
+    assert back.params == ref_index.params
+    for name in IndexArrays.array_fields():
+        np.testing.assert_array_equal(np.asarray(getattr(back.arrays, name)),
+                                      ref_leaves[name], err_msg=name)
+    again = E2LSHIndex.load(tmp_path / "port.npz", device="cpu")
+    _assert_leaves_equal(again.arrays, ref_leaves)
+    assert isinstance(again.stats, IndexStats)
+
+    z = dict(np.load(tmp_path / "port.npz", allow_pickle=True))
+    del z["layout_meta"]
+    np.savez(tmp_path / "bare.npz", **z)
+    with pytest.raises(ValueError, match="layout_meta"):
+        E2LSHIndex.load(tmp_path / "bare.npz", device="cpu")

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_probe,
-                                 bucket_probe_ref, l2_distance_gathered,
+                                 bucket_probe_ref, l2_distance, l2_distance_gathered,
                                  l2_distance_gathered_ref, lsh_hash_all_radii,
                                  lsh_hash_all_radii_ref, lsh_hash_ref)
 from repro_torch.kernels.lsh_hash.ref import floor_margin
@@ -176,6 +176,7 @@ def test_cpu_tensors_never_launch_a_kernel():
     bucket_probe(torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
                  ids, ids)
     l2_distance_gathered(x, x[:, None, :], torch.zeros(3, 1), torch.zeros(3))
+    l2_distance(x, x)
     assert [k.launches for k in KERNELS] == before
 
 

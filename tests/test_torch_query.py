@@ -113,11 +113,42 @@ def test_make_plan_fn_matches_query(engine, clustered_data):
     q = clustered_data["queries"][:12]
     cfg, fn = engine.make_plan_fn(plan="fused", k=3)
     _, fn_m = engine.make_plan_fn(plan="oracle", k=3, masked=True)
-    assert cfg.k == 3 and engine.PLANS == ("fused", "oracle")
+    assert cfg.k == 3 and engine.PLANS == ("fused", "host", "oracle")
+    assert engine.plans == engine.PLANS and engine.external is None
     _assert_identical(fn(q), engine.query(q, plan="fused", k=3))
     _assert_identical(fn_m(q, np.ones(12, bool)), engine.query(q, plan="oracle", k=3))
     with pytest.raises(ValueError, match="unknown plan"):
-        engine.query(q, plan="host")
+        engine.query(q, plan="external")
+
+
+@pytest.mark.parametrize("k,s_cap", [(1, None), (3, 8)])
+def test_host_plan_matches_fused_bit_exact(engine, clustered_data, k, s_cap):
+    """The host plan (the oracle's radius step, one host sync per radius for
+    the early exit) equals fused on every field, masked rows and a lone
+    query included."""
+    q = clustered_data["queries"]
+    kw = dict(k=k, s_cap=s_cap)
+    _assert_identical(engine.query(q, plan="fused", collect_probe_sizes=True, **kw),
+                      engine.query(q, plan="host", collect_probe_sizes=True, **kw),
+                      probe_sizes=True)
+    valid = np.arange(16) < 11
+    _assert_identical(engine.query(q[:16], plan="fused", valid=valid, **kw),
+                      engine.query(q[:16], plan="host", valid=valid, **kw))
+    _, fn = engine.make_plan_fn(plan="host", **kw)
+    _assert_identical(fn(q[5:6]), engine.query(q[5:6], plan="fused", **kw))
+
+
+def test_tune_gamma_hits_target(clustered_data):
+    """As the reference's (tests/test_serving.py): the first grid point that
+    reaches the target overall ratio is returned, with its index."""
+    from repro_torch.core import tune_gamma
+
+    res = tune_gamma(clustered_data["db"], clustered_data["queries"],
+                     clustered_data["gt_dists"][:, :1], target_ratio=1.05,
+                     gammas=(0.7,), s_scales=(2.0,), max_L=24, seed=3, device="cpu")
+    assert res.ratio < 1.05
+    assert (res.gamma, res.s_scale) == (0.7, 2.0)
+    assert res.index.index.arrays.device.type == "cpu"
 
 
 @pytest.mark.parametrize("k", [1, 5])
@@ -174,7 +205,9 @@ def test_cuda_fused_matches_oracle_on_agreeing_rows():
         kern.launches = 0
     fus = engine.query(q, plan="fused", k=3)
     torch.cuda.synchronize()
-    assert all(kern.launches > 0 for kern in KERNELS)
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    assert all(launches[k] > 0 for k in ("lsh_hash", "bucket_probe", "l2_distance"))
+    assert launches["l2_distance_dense"] == 0, launches
     ref = engine.query(q, plan="oracle", k=3)
     cfg, ix = engine.config(k=3), engine.arrays()
     qt = torch.from_numpy(np.array(q)).cuda()
