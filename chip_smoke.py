@@ -99,6 +99,45 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(log: str):
+    """Per kernel entry in an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory, spill bytes, and for an fp32_tile instantiation its
+    ring's dynamic shared memory (STAGES * (BM + BN) * 32 * 4 bytes)."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(fn=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    names = [e["fn"] for e in out]
+    try:
+        dem = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        dem = names
+    for e, d in zip(out, dem if len(dem) == len(names) else names):
+        m = re.search(r"Tile<(\d+), (\d+), (\d+), (\d+), (\d+), (\d+)>, (true|false)", d)
+        if m:
+            bm, bn, tx, ty, stages, _ = map(int, m.groups()[:6])
+            e["fn"] = f"tile{bm}x{bn}_threads{tx * ty}_stages{stages}_vec4={m.group(7)}"
+            e["ring_smem"] = stages * (bm + bn) * 32 * 4
+        else:
+            e["fn"] = d.replace("(anonymous namespace)::", "").split("(")[0][-60:]
+    return out
+
+
 def profile_batches(torch, run, p50_s, n_prof=5, **labels):
     """Where a batch's time goes: device busy time from the profiler against
     the batch's wall p50 (single stream, so busy = sum of device events)."""
@@ -310,6 +349,49 @@ def external_phase(torch, engine, params, path, hdr, queries, kernels):
           f"plan=external launched a kernel off its path: {launches}")
 
 
+def hash_bound_ms(n, d, r, L, m):
+    """lsh_hash's least time: x, a, b, wR, rm read once, bucket and fp
+    written once; 2*n*d*r*L*m flops (the algorithm's columns, not padded)."""
+    rlm = r * L * m
+    return bound_ms(n * d * 4 + rlm * d * 4 + 3 * rlm * 4 + 2 * n * r * L * 4, 2 * n * d * rlm)
+
+
+def hash_kernel_phase(torch, dev, ix, queries, hkw):
+    """The hash kernel against its plain version: the index's family at
+    N = 256, 2, 1 (the batch, a lone query as the plans pad it, a bare
+    row), 33 and 300 (database rows), and a ragged family (m = 13, D = 100).
+    Every hash clear of a floor() boundary by MARGIN must agree. Returns the
+    largest bucket difference among those (0 when all agree)."""
+    from repro_torch.kernels import lsh_hash_all_radii, lsh_hash_all_radii_ref
+    from repro_torch.kernels.lsh_hash.ref import floor_margin
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    r13, L13, m13, d13 = 3, 8, 13, 100
+    fam13 = (torch.randn((r13, L13, m13, d13), generator=gen, device=dev),
+             torch.rand((r13, L13, m13), generator=gen, device=dev),
+             torch.randint(-2**31, 2**31 - 1, (r13, L13, m13), generator=gen, device=dev,
+                           dtype=torch.int32) | 1)
+    kw13 = dict(w=4.0, radii=(1.0, 2.0, 4.0), u=18, fp_bits=14)
+    cases = [(queries[:n], (ix.a, ix.b, ix.rm), hkw) for n in (queries.shape[0], 2, 1)]
+    cases += [(ix.db[:n].contiguous(), (ix.a, ix.b, ix.rm), hkw) for n in (33, 300)]
+    cases += [(torch.randn((n, d13), generator=gen, device=dev) * 3, fam13, kw13)
+              for n in (1, 2, 33, 300)]
+    worst = 0
+    for x, (a, b, rm), kw in cases:
+        bk, fp = lsh_hash_all_radii(x, a, b, rm, **kw)
+        bk_p, fp_p = lsh_hash_all_radii_ref(x, a, b, rm, **kw)
+        safe = floor_margin(x, a, b, w=kw["w"], radii=kw["radii"]) > MARGIN
+        same = (bk == bk_p) & (fp == fp_p)
+        bad = int((safe & ~same).sum())
+        worst = max(worst, int(((bk - bk_p).abs() * safe).max()))
+        say("lsh_hash", rows=x.shape[0], m=a.shape[2], D=a.shape[3], hashes=same.numel(),
+            clear_of_boundary=int(safe.sum()), disagree_clear=bad,
+            flips_near_boundary=int((~safe & ~same).sum()))
+        check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree "
+                        f"(N={x.shape[0]}, m={a.shape[2]}, D={a.shape[3]})")
+    return worst
+
+
 def dense_kernel_phase(torch, dev, flush):
     """The dense kernel against its plain version at the exact scan's block
     shape plus ragged and float16 ones (Gaussian inputs, the reference's
@@ -320,6 +402,10 @@ def dense_kernel_phase(torch, dev, flush):
     worst = 0.0
     for nq, nc, d, dtype in ((N_QUERIES, EXACT_BLOCK, 128, torch.float32),
                              (1, EXACT_BLOCK - 3, 128, torch.float32),
+                             (129, EXACT_BLOCK - 3, 128, torch.float32),
+                             (129, EXACT_BLOCK - 3, 100, torch.float32),
+                             (1, EXACT_BLOCK, 130, torch.float32),
+                             (129, EXACT_BLOCK - 3, 130, torch.float32),
                              (33, 190, 100, torch.float32), (33, 190, 128, torch.float16)):
         q = torch.randn((nq, d), generator=gen, device=dev).to(dtype)
         x = torch.randn((nc, d), generator=gen, device=dev).to(dtype)
@@ -346,7 +432,7 @@ def dense_kernel_phase(torch, dev, flush):
                           2 * NQ * NC * D + 2 * (NQ + NC) * D + 3 * NQ * NC)
     say("l2_distance_dense", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
         library_addmm_ms=f"{t_l:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-        tflops=f"{2 * NQ * NC * D / t_k / 1e9:.2f}")
+        bound_share=f"{b_ms / t_k:.3f}", tflops=f"{2 * NQ * NC * D / t_k / 1e9:.2f}")
     return worst, t_k, t_p, t_l, b_ms, b_by
 
 
@@ -376,8 +462,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import (KERNELS, bucket_probe, bucket_probe_ref,
                                      l2_distance_gathered, l2_distance_gathered_ref,
                                      lsh_hash_all_radii, lsh_hash_all_radii_ref)
-    from repro_torch.kernels.build import build_all
-    from repro_torch.kernels.lsh_hash.ref import floor_margin
+    from repro_torch.kernels.build import build_all, kernel_names, library_path
+    from repro_torch.kernels.lsh_hash.ops import index_hash_pack
 
     # ---- the card and the build ----------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -393,6 +479,9 @@ def main(argv=None) -> int:
 
     build_s = build_all()
     say("build", kernels=len(KERNELS), nvcc_parallel_s=f"{build_s:.3f}")
+    for kname in kernel_names():
+        for e in ptxas_report(library_path(kname).with_suffix(".log").read_text()):
+            say("build", kernel=kname, **e)
 
     t0 = time.perf_counter()
     ds = make_dataset("sift", n=args.n, n_queries=N_QUERIES, seed=0)
@@ -511,32 +600,32 @@ def main(argv=None) -> int:
     # ---- each kernel against its plain version at its path's shapes
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     record = []
+    one = torch.zeros(1, device=dev)
+    say("timing", method="median of 30, CUDA events, L2 flushed before each call",
+        floor_one_element_add_ms=f"{median_ms(torch, lambda: one.add_(1), flush=flush):.4f}")
 
     # lsh_hash: the batch's all-radius hash
     r, L, m, D = ix.a.shape
     RLM = r * L * m
-    worst = 0
-    for n in (Q, 1):
-        x = queries[:n]
-        bk, fp = lsh_hash_all_radii(x, ix.a, ix.b, ix.rm, **hkw)
-        bk_p, fp_p = lsh_hash_all_radii_ref(x, ix.a, ix.b, ix.rm, **hkw)
-        safe = floor_margin(x, ix.a, ix.b, w=cfg.w, radii=cfg.radii) > MARGIN
-        same = (bk == bk_p) & (fp == fp_p)
-        bad = int((safe & ~same).sum())
-        worst = max(worst, int(((bk - bk_p).abs() * safe).max()))
-        say("lsh_hash", rows=n, hashes=same.numel(), clear_of_boundary=int(safe.sum()),
-            disagree_clear=bad, flips_near_boundary=int((~safe & ~same).sum()))
-        check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree")
-    a2 = ix.a.reshape(RLM, D)
-    t_k = median_ms(torch, lambda: lsh_hash_all_radii(queries, ix.a, ix.b, ix.rm, **hkw),
-                    flush=flush)
+    worst = hash_kernel_phase(torch, dev, ix, queries, hkw)
+    # the index's pack, as the plans pass it (built at its first batch)
+    pack = index_hash_pack(ix, w=hkw["w"], radii=hkw["radii"])
+    t_k = median_ms(torch, lambda: lsh_hash_all_radii(queries, ix.a, ix.b, ix.rm, **hkw,
+                                                      pack=pack), flush=flush)
     t_p = median_ms(torch, lambda: lsh_hash_all_radii_ref(queries, ix.a, ix.b, ix.rm, **hkw),
                     flush=flush)
+    a2 = ix.a.reshape(RLM, D)
     t_y = median_ms(torch, lambda: queries @ a2.T, flush=flush)
-    b_ms, b_by = bound_ms(Q * D * 4 + RLM * D * 4 + 3 * RLM * 4 + 2 * Q * r * L * 4,
-                          2 * Q * D * RLM)
-    say("lsh_hash", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-        yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    b_ms, b_by = hash_bound_ms(Q, D, r, L, m)
+    say("lsh_hash", rows=Q, ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+        yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bound_share=f"{b_ms / t_k:.3f}", tflops=f"{2 * Q * D * RLM / t_k / 1e9:.2f}")
+    q2 = queries[:2]
+    t_k2 = median_ms(torch, lambda: lsh_hash_all_radii(q2, ix.a, ix.b, ix.rm, **hkw,
+                                                       pack=pack), flush=flush)
+    b2_ms, b2_by = hash_bound_ms(2, D, r, L, m)
+    say("lsh_hash", rows=2, ms=f"{t_k2:.4f}", bound_ms=f"{b2_ms:.4f}", bound_by=b2_by,
+        bound_share=f"{b2_ms / t_k2:.3f}")
     record.append(dict(name="lsh_hash", route="cuda", source="src/repro_torch/csrc/lsh_hash.cu",
                        replaces="src/repro/kernels/lsh_hash/kernel.py:76",
                        launches=launches["lsh_hash"], max_abs_err=float(worst), ms=t_k,

@@ -58,7 +58,7 @@ from ..kernels.bucket_probe.ops import INVALID, bucket_probe
 from ..kernels.dispatch import resolve_device
 from ..kernels.l2_distance.ops import l2_distance_gathered
 from ..kernels.l2_distance.ref import l2_distance_gathered_ref
-from ..kernels.lsh_hash.ops import lsh_hash_all_radii
+from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_all_radii
 from ..kernels.lsh_hash.ref import lsh_hash_ref
 
 __all__ = ["QueryConfig", "QueryResult", "SearchEngine", "fused_plan_body",
@@ -438,11 +438,12 @@ def table_lookup(ix: IndexArrays, bucket_all: torch.Tensor, cfg: QueryConfig):
 
 def hash_stage(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig):
     """Step 1 for the whole schedule: one lsh_hash launch hashes every radius,
-    then the table lookups. queries [Q, d] float32 -> (cnt_all, head_all,
-    qfp_all) [r, Q, L]."""
+    then the table lookups; the kernel reads the index's hash pack, built at
+    its first batch. queries [Q, d] float32 -> (cnt_all, head_all, qfp_all)
+    [r, Q, L]."""
     bucket_all, qfp_all = lsh_hash_all_radii(
         queries, ix.a, ix.b, ix.rm, w=cfg.w, radii=cfg.radii, u=cfg.u,
-        fp_bits=cfg.fp_bits)
+        fp_bits=cfg.fp_bits, pack=index_hash_pack(ix, w=cfg.w, radii=cfg.radii))
     cnt_all, head_all = table_lookup(ix, bucket_all, cfg)
     return cnt_all, head_all, qfp_all
 

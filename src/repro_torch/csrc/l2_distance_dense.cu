@@ -6,111 +6,101 @@
 // with both norms computed inside the kernel, as the TPU kernel does, and
 // the epilogue evaluated in the reference's op order (ref.py:16):
 // __fadd_rn/__fmul_rn/__fsub_rn keep nvcc from contracting it into an FMA.
-// Every sum is an IEEE fp32 FMA chain on the CUDA cores: no tensor cores and
-// no TF32, whose 10-bit mantissa moves d2 by ~1e-3 relative and reorders
-// near neighbours.
 //
 // What bounds it on the H100: operations. The work is 2*NQ*NC*D flops over
 // (NQ + NC)*D*4 bytes read and NQ*NC*4 written; at the exact scan's block
 // (NQ = 256, NC = 16384, D = 128) that is 1.07 GFLOP against 25 MB, about
 // 43 flop/byte, far above the fp32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so
-// the bound is fp32 FMA throughput. Design: a simple SIMT tiled product.
-// A block owns a 64 x 64 output tile and walks D in slices of 16: each
-// slice of the q tile and of the x tile is staged in shared memory,
-// k-major so a thread reads its four rows and four columns as two float4s;
-// each of the 256 threads accumulates a 4 x 4 register micro-tile.
-// Threads 0-63 sum the q rows' squares and threads 64-127 the x rows'
-// squares from the same staged slices. Ragged NQ, NC and any D are handled
-// by bounds checks (zero-filled loads, guarded stores), not a padding
-// contract. Tensor cores (wgmma with a 3xTF32 split) and TMA staging are
-// the way to the card's peak, and are left for later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// the bound is fp32 FMA throughput (16 us).
+// Design: the shared register-tiled product of fp32_tile.cuh (cp.async
+// ring of two 32-wide K slices, conflict-free float4 shared-memory reads)
+// with 128 x 256 blocks of 256 threads, 8 x 16 accumulators per thread: 128
+// FMAs per 24 float4s read from shared memory (a float4 read takes a
+// quarter warp one shared-memory cycle, so fewer accumulators would leave
+// the FMA pipe waiting on shared memory). At the scan's block shape that is
+// 128 blocks, one per SM (255 registers, no spills), in a single wave. The
+// norms are summed from the same staged slices, spread over all 256
+// threads (the 384 staged rows, one or two each). The epilogue stores each
+// thread's four adjacent columns as one float4 where the row allows it.
+// No tensor cores: TF32 keeps 10 mantissa bits, which moves d2 by ~1e-3
+// relative and reorders near neighbours; a 3xTF32 split on wgmma would keep
+// fp32 accuracy at a higher rate but changes the rounding model.
+#include "fp32_tile.cuh"
 
 namespace {
 
-constexpr int kBM = 64;   // query rows per block
-constexpr int kBN = 64;   // database rows per block
-constexpr int kBK = 16;   // D slice staged per step
-constexpr int kPad = 4;   // keeps each staged row 16 B aligned, spreads banks
-constexpr int kThreads = 256;
+using Dense = fp32_tile::Tile<128, 256, 16, 16, 2, 1>;
 
-__global__ void __launch_bounds__(kThreads)
-l2_dense_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                float* __restrict__ out, int nq, int nc, int d) {
-  __shared__ __align__(16) float qs[kBK][kBM + kPad];
-  __shared__ __align__(16) float xs[kBK][kBN + kPad];
-  __shared__ float qn_s[kBM];
-  __shared__ float xn_s[kBN];
+struct DistanceEpilogue {
+  static constexpr int kMaxRowsPerThread = 2;
+  float* out;  // [M, N]
+  int M, N;
+  bool vec_out;  // rows of out start on 16 bytes
+  // this thread's staged rows tid + k * threads: A rows [0, BM), then B rows
+  float norm[kMaxRowsPerThread];
 
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  template <class T>
+  static constexpr int extra_floats() { return 0; }
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;  // threads 0-63: ||q_{m0+t}||^2; 64-127: ||x_{n0+t-64}||^2
+  template <class T>
+  __device__ __forceinline__ void stage(float*, int, int) {}
 
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    // 64 rows x 16 columns of each operand: four elements per thread
+  template <class T>
+  __device__ __forceinline__ void on_slice(const float* st, int tid) {
+    constexpr int kPer = (T::kRows + T::kThreads - 1) / T::kThreads;
+    static_assert(kPer <= kMaxRowsPerThread, "too many staged rows per thread");
 #pragma unroll
-    for (int e = 0; e < (kBM * kBK) / kThreads; ++e) {
-      const int idx = t + e * kThreads;
-      const int r = idx / kBK, c = idx % kBK;
-      const int gk = k0 + c;
-      const int gq = m0 + r, gx = n0 + r;
-      qs[c][r] = (gq < nq && gk < d) ? __ldg(q + (size_t)gq * d + gk) : 0.f;
-      xs[c][r] = (gx < nc && gk < d) ? __ldg(x + (size_t)gx * d + gk) : 0.f;
-    }
-    __syncthreads();
-
-    if (t < kBM) {
+    for (int k = 0; k < kPer; ++k) {
+      const int R = tid + k * T::kThreads;
+      if (R >= T::kRows) break;
+      const float* row = st + R * fp32_tile::kBK;
+      // chunks in an order rotated by lane, so a quarter warp reads eight
+      // bank groups (the rows' swizzle does not matter for a sum over the row)
 #pragma unroll
-      for (int k = 0; k < kBK; ++k) norm = fmaf(qs[k][t], qs[k][t], norm);
-    } else if (t < kBM + kBN) {
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) norm = fmaf(xs[k][t - kBM], xs[k][t - kBM], norm);
-    }
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&xs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  if (t < kBM) {
-    qn_s[t] = norm;
-  } else if (t < kBM + kBN) {
-    xn_s[t - kBM] = norm;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = m0 + ty * 4 + i;
-    if (gq >= nq) break;
-    const float qn = qn_s[ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gx = n0 + tx * 4 + j;
-      if (gx < nc) {
-        const float v = __fsub_rn(__fadd_rn(qn, xn_s[tx * 4 + j]),
-                                  __fmul_rn(2.f, acc[i][j]));
-        out[(size_t)gq * nc + gx] = fmaxf(v, 0.f);
+      for (int p = 0; p < fp32_tile::kBK / 4; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(row + (((p + tid) & 7) << 2));
+        norm[k] = fmaf(v.x, v.x, norm[k]);
+        norm[k] = fmaf(v.y, v.y, norm[k]);
+        norm[k] = fmaf(v.z, v.z, norm[k]);
+        norm[k] = fmaf(v.w, v.w, norm[k]);
       }
     }
   }
-}
+
+  template <class T>
+  __device__ __forceinline__ void finish(float (&acc)[T::TM][T::TN], float* smem, int m0,
+                                         int n0, int tx, int ty, int tid) {
+#pragma unroll
+    for (int k = 0; k < kMaxRowsPerThread; ++k)  // [BM] query norms, [BN] database norms
+      if (tid + k * T::kThreads < T::kRows) smem[tid + k * T::kThreads] = norm[k];
+    __syncthreads();
+    const float* xn = smem + T::BM;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int gi = m0 + T::row(ty, i);
+      if (gi >= M) break;
+      const float qn = smem[T::row(ty, i)];
+      float* orow = out + (size_t)gi * N;
+#pragma unroll
+      for (int g = 0; g < T::TN / 4; ++g) {
+        const int c = T::col(tx, 4 * g);
+        const int gj = n0 + c;
+        float v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          v[jj] = fmaxf(__fsub_rn(__fadd_rn(qn, xn[c + jj]), __fmul_rn(2.f, acc[i][4 * g + jj])),
+                        0.f);
+        if (vec_out && gj + 3 < N) {
+          *reinterpret_cast<float4*>(orow + gj) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (gj + jj < N) orow[gj + jj] = v[jj];
+        }
+      }
+    }
+  }
+};
 
 }  // namespace
 
@@ -119,11 +109,10 @@ extern "C" const char* kernel_error_string(int code) {
 }
 
 // q [nq, d], x [nc, d], out [nq, nc]; f32, contiguous.
-extern "C" int l2_dense_launch(const float* q, const float* x, float* out, int nq,
-                               int nc, int d, cudaStream_t stream) {
-  const int gy = (nq + kBM - 1) / kBM;
-  if (gy > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((nc + kBN - 1) / kBN, gy);
-  l2_dense_kernel<<<grid, kThreads, 0, stream>>>(q, x, out, nq, nc, d);
-  return (int)cudaGetLastError();
+extern "C" int l2_dense_launch(const float* q, const float* x, float* out, int nq, int nc,
+                               int d, cudaStream_t stream) {
+  const DistanceEpilogue epi{out, nq, nc, fp32_tile::rows_aligned16(out, nc), {0.f, 0.f}};
+  const bool vec4 = fp32_tile::rows_aligned16(q, d) && fp32_tile::rows_aligned16(x, d);
+  return (int)(vec4 ? fp32_tile::launch<Dense, true>(q, x, nq, nc, d, epi, stream)
+                    : fp32_tile::launch<Dense, false>(q, x, nq, nc, d, epi, stream));
 }

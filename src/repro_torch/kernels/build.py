@@ -3,11 +3,12 @@
 Each ``repro_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc`` into
 a shared library with a plain C interface under ``build/kernels/`` at the
 repository root, and loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library's file name carries a digest of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :class:`CudaKernel` raises when that is not 0 and
-counts the launches that went through.
+takes seconds). The library's file name carries a digest of the source, of
+every shared header (``csrc/*.cuh``) and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded; headers are never
+build targets themselves. Every C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :class:`CudaKernel` raises when
+that is not 0 and counts the launches that went through.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["CudaKernel", "build_all", "library_path", "BUILD_DIR", "CSRC_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "build_all", "kernel_names", "library_path", "BUILD_DIR",
+           "CSRC_DIR", "NVCC_FLAGS"]
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,10 +43,17 @@ def _nvcc() -> str:
     return found
 
 
+def kernel_names() -> list:
+    """The build targets: one library per ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -79,7 +87,7 @@ def _finish(name: str, out, tmp, proc) -> None:
 def build_all(names=None) -> float:
     """Compile every kernel source (or ``names``) with one nvcc per source,
     all started together. Returns the wall seconds it took."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu")) if names is None else names
+    names = kernel_names() if names is None else names
     t0 = time.perf_counter()
     started = [(n, *_start(n)) for n in names]
     for n, out, tmp, proc in started:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["fmix32", "combine_split", "true_div", "lsh_hash_ref",
-           "lsh_hash_all_radii_ref", "floor_margin"]
+           "lsh_hash_all_radii_ref", "lsh_hash_packed_ref", "floor_margin"]
 
 M32 = 0xFFFFFFFF
 
@@ -75,6 +75,25 @@ def lsh_hash_all_radii_ref(x, a, b, rm, *, w: float, radii, u: int, fp_bits: int
                         u=u, fp_bits=fp_bits)
            for t, radius in enumerate(radii)]
     return (torch.stack([bk for bk, _ in out]), torch.stack([fp for _, fp in out]))
+
+
+def lsh_hash_packed_ref(x, pack, *, u: int, fp_bits: int):
+    """The plain version over the kernel's operands (``ops.HashPack``):
+    x [N, D] -> (bucket, fp) [r, N, L] int32.
+
+    Each radius's projection is the oracle's einsum over the pack's real
+    columns, so the result is bit for bit :func:`lsh_hash_all_radii_ref`'s;
+    the quantisation and combine then run over every packed column, where a
+    padding column (a = 0, bwr = 0, wr = 1, rm = 0) adds floor(0/1) * 0 = 0."""
+    r, L, m, mp = pack.r, pack.L, pack.m, pack.mp
+    N, D = x.shape
+    a = pack.a.view(r, L, mp, D)
+    x = x.to(torch.float32)
+    proj = torch.zeros((r, N, L, mp), dtype=torch.float32, device=x.device)
+    for t in range(r):
+        proj[t, :, :, :m] = torch.einsum("nd,lmd->nlm", x, a[t, :, :m].contiguous())
+    hj = torch.floor((proj + pack.bwr.view(r, 1, L, mp)) / pack.wr.view(r, 1, L, mp))
+    return combine_split(hj, pack.rm.view(r, 1, L, mp), u, fp_bits)
 
 
 def floor_margin(x, a, b, *, w: float, radii) -> torch.Tensor:

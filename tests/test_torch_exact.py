@@ -90,12 +90,24 @@ def test_cpu_exact_knn_never_launches_the_kernel(clustered_data):
     assert [kern.launches for kern in KERNELS] == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("nq,nc,d,dtype", GRID + [(256, 16384, 128, np.float32)])
-def test_cuda_l2_distance_kernel_matches_plain(nq, nc, d, dtype):
+@pytest.fixture
+def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel is CUDA C++ with no CPU or "
                     "interpret mode")
+    return torch.device("cuda")
+
+
+# the exact scan's block, a lone query, and D = 100 / 130 (K not a multiple
+# of the kernel's 32-wide slice; 130 also not of 4: 4-byte copies)
+CUDA_GRID = GRID + [(256, 16384, 128, np.float32), (1, 16384, 128, np.float32),
+                    (129, 16381, 128, np.float32), (129, 16381, 100, np.float32),
+                    (1, 16381, 130, np.float32), (129, 1000, 130, np.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nc,d,dtype", CUDA_GRID)
+def test_cuda_l2_distance_kernel_matches_plain(cuda, nq, nc, d, dtype):
     from repro_torch.kernels.l2_distance.ops import DENSE_KERNEL
     q, x = (torch.from_numpy(a).cuda() for a in _inputs(nq, nc, d, dtype))
     n0 = DENSE_KERNEL.launches

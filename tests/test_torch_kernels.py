@@ -10,6 +10,13 @@ bucket width from a floor() boundary (float64 recomputation), and flips
 among the rest are counted. Distances: allclose at rtol = atol = 2e-4, the
 reference's own kernel tolerance.
 
+The hash kernel's operands are a pack built once per index and radius
+schedule (``kernels/lsh_hash/ops.py``): each hash's m columns padded to a
+width that divides the kernel's block, with inert padding columns. The pack
+and the plain version over it are held to the reference's Pallas kernel
+too, for m in {1, 6, 13, 23} and r*L not a multiple of the hashes a block
+takes.
+
 CUDA cases (marker ``cuda``): each hand-written kernel vs its plain version
 on the card, by the same rules; they skip where no card is present.
 """
@@ -21,7 +28,9 @@ from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_prob
                                  bucket_probe_ref, l2_distance, l2_distance_gathered,
                                  l2_distance_gathered_ref, lsh_hash_all_radii,
                                  lsh_hash_all_radii_ref, lsh_hash_ref)
-from repro_torch.kernels.lsh_hash.ref import floor_margin
+from repro_torch.kernels.lsh_hash import ops as hash_ops
+from repro_torch.kernels.lsh_hash.ops import hash_pack, index_hash_pack, packed_width
+from repro_torch.kernels.lsh_hash.ref import floor_margin, lsh_hash_packed_ref
 
 RNG = np.random.default_rng(11)
 MARGIN = 1e-4
@@ -122,6 +131,140 @@ def test_lsh_hash_all_radii_ref_matches_pallas_boundary_rule(ref_kernels, n, d, 
     assert flips <= int((margin <= MARGIN).sum())
 
 
+# (r, L, m): r*L is not a multiple of the hashes a block takes (96 // mp for
+# a batch, 48 // mp for a lone query) in any case.
+PACK_SHAPES = [(2, 5, 1), (3, 5, 6), (2, 7, 13), (3, 3, 23)]
+
+
+def test_packed_width_divides_the_block():
+    """Up to the kernel's 96-column block a width divides it; past it (the
+    plain version's alone) it is m rounded up to a multiple of 4."""
+    assert [packed_width(m) for m in (1, 4, 5, 6, 9, 13, 17, 23, 25, 33, 96)] == \
+        [4, 4, 8, 8, 12, 16, 24, 24, 32, 48, 96]
+    assert [packed_width(m) for m in (97, 100, 130)] == [100, 100, 132]
+
+
+def test_lsh_hash_past_the_kernel_block_on_the_cpu(ref_kernels):
+    """m = 101 exceeds the kernel's block; a CPU tensor still hashes it, equal
+    to the reference's kernel on integer data (exact projections)."""
+    import jax.numpy as jnp
+    r, L, m, n, d = 2, 3, 101, 9, 12
+    rng = np.random.default_rng(101)
+    x = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    a = rng.integers(-3, 4, size=(r, L, m, d)).astype(np.float32)
+    b = rng.uniform(size=(r, L, m)).astype(np.float32)
+    rm = ((rng.integers(1, 2**31, size=(r, L, m)).astype(np.uint32) << 1) | 1).view(np.int32)
+    kw = dict(w=4.0, radii=(1.0, 2.0), u=12, fp_bits=10)
+    bk_j, fp_j = ref_kernels.lsh_hash_all_radii(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), jnp.asarray(rm),
+        interpret=True, force_pallas=True, **kw)
+    bk, fp = lsh_hash_all_radii(*_t(x, a, b, rm), **kw)
+    np.testing.assert_array_equal(bk.numpy(), np.asarray(bk_j))
+    np.testing.assert_array_equal(fp.numpy(), np.asarray(fp_j))
+
+
+@pytest.mark.parametrize("r,L,m", PACK_SHAPES)
+def test_hash_pack_layout(r, L, m):
+    """Real columns carry a, b*wR, wR, rm; padding columns a = 0, bwr = 0,
+    wr = 1, rm = 0, so they add floor(0/1) * 0 = 0 to their hash."""
+    d = 20
+    a, b, rm = _t(*_family(r, L, m, d))
+    radii = tuple(1.5 ** t for t in range(r))
+    pack = hash_pack(a, b, rm, w=4.0, radii=radii)
+    mp = pack.mp
+    assert mp == packed_width(m) and mp % 4 == 0 and 96 % mp == 0
+    assert pack.a.shape == (r * L * mp, d) and pack.rm.dtype == torch.int32
+    wr = torch.tensor([4.0 * rad for rad in radii], dtype=torch.float32)[:, None, None]
+    a4, bwr, w4, rm4 = (pack.a.view(r, L, mp, d), pack.bwr.view(r, L, mp),
+                        pack.wr.view(r, L, mp), pack.rm.view(r, L, mp))
+    assert torch.equal(a4[:, :, :m], a) and bool((a4[:, :, m:] == 0).all())
+    assert torch.equal(bwr[:, :, :m], b * wr) and bool((bwr[:, :, m:] == 0).all())
+    assert torch.equal(w4[:, :, :m], wr.expand(r, L, m)) and bool((w4[:, :, m:] == 1).all())
+    assert torch.equal(rm4[:, :, :m], rm) and bool((rm4[:, :, m:] == 0).all())
+
+
+@pytest.mark.parametrize("r,L,m", PACK_SHAPES)
+def test_hash_pack_matches_pallas_exact_projections(ref_kernels, r, L, m):
+    """Integer data, so both sides see the same projections: the plain
+    version over the pack, and the wrapper (which runs it on a CPU tensor),
+    equal the reference's kernel exactly."""
+    import jax.numpy as jnp
+    n, d = 37, 30
+    x = RNG.integers(-4, 5, size=(n, d)).astype(np.float32)
+    a, b, rm = _family(r, L, m, d, integer=True)
+    radii = tuple(2.0 ** t for t in range(r))
+    kw = dict(w=4.0, radii=radii, u=12, fp_bits=10)
+    bk_j, fp_j = ref_kernels.lsh_hash_all_radii(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), jnp.asarray(rm),
+        interpret=True, force_pallas=True, **kw)
+    xt, at, bt, rmt = _t(x, a, b, rm)
+    pack = hash_pack(at, bt, rmt, w=4.0, radii=radii)
+    for bk, fp in (lsh_hash_packed_ref(xt, pack, u=12, fp_bits=10),
+                   lsh_hash_all_radii(xt, at, bt, rmt, **kw)):
+        assert bk.shape == (r, n, L) and bk.dtype == torch.int32
+        np.testing.assert_array_equal(bk.numpy(), np.asarray(bk_j))
+        np.testing.assert_array_equal(fp.numpy(), np.asarray(fp_j))
+
+
+@pytest.mark.parametrize("r,L,m", PACK_SHAPES)
+def test_hash_pack_matches_pallas_boundary_rule(ref_kernels, r, L, m):
+    """Gaussian data: exact on every hash clear of a floor() boundary by
+    1e-4 of a bucket width; and bit for bit the per-radius plain version
+    (the oracle plan's hashing), which keeps fused == oracle on the CPU."""
+    import jax.numpy as jnp
+    n, d = 65, 100
+    x = RNG.normal(size=(n, d)).astype(np.float32) * 3
+    a, b, rm = _family(r, L, m, d)
+    radii = tuple(2.0 ** t for t in range(r))
+    kw = dict(w=4.0, radii=radii, u=14, fp_bits=14)
+    bk_j, fp_j = ref_kernels.lsh_hash_all_radii(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), jnp.asarray(rm),
+        interpret=True, force_pallas=True, **kw)
+    xt, at, bt, rmt = _t(x, a, b, rm)
+    bk, fp = lsh_hash_packed_ref(xt, hash_pack(at, bt, rmt, w=4.0, radii=radii),
+                                 u=14, fp_bits=14)
+    margin = floor_margin(xt, at, bt, w=4.0, radii=radii)
+    flips = _assert_hashes_agree(bk, fp, torch.from_numpy(np.array(bk_j)),
+                                 torch.from_numpy(np.array(fp_j)), margin)
+    assert flips <= int((margin <= MARGIN).sum())
+    bk_p, fp_p = lsh_hash_all_radii_ref(xt, at, bt, rmt, **kw)
+    assert torch.equal(bk, bk_p) and torch.equal(fp, fp_p)
+
+
+def test_hash_pack_built_once_per_index_and_schedule(monkeypatch):
+    """Two query batches on one index reuse one pack; another schedule
+    builds another; the packs go when their index is freed."""
+    import gc
+    from repro_torch.core import E2LSHoS, SearchEngine
+    built, real = [], hash_ops.hash_pack
+    monkeypatch.setattr(hash_ops, "hash_pack",
+                        lambda *args, **kw: built.append(real(*args, **kw)) or built[-1])
+    db = RNG.normal(size=(400, 16)).astype(np.float32)
+    idx = E2LSHoS.build(db, gamma=0.7, max_L=4, device="cpu")
+    engine = SearchEngine(idx, device="cpu")
+    first = engine.query(db[:6], plan="fused", k=2)
+    assert len(built) == 1
+    second = engine.query(db[6:9], plan="fused", k=2)
+    engine.query(db[:6], plan="fused", k=3)
+    assert len(built) == 1
+    assert first.ids.shape == (6, 2) and second.ids.shape == (3, 2)
+    ix = engine.arrays()
+    assert index_hash_pack(ix, w=idx.params.w, radii=idx.params.radii) is built[0]
+    other = index_hash_pack(ix, w=idx.params.w, radii=idx.params.radii[:-1] + (99.0,))
+    assert len(built) == 2 and other is not built[0]
+
+    class Family:
+        a, b, rm = torch.zeros((1, 2, 3, 4)), torch.zeros((1, 2, 3)), torch.zeros(
+            (1, 2, 3), dtype=torch.int32)
+    fam = Family()
+    index_hash_pack(fam, w=4.0, radii=(1.0,))
+    key = id(fam)
+    assert key in hash_ops._INDEX_PACKS
+    del fam
+    gc.collect()
+    assert key not in hash_ops._INDEX_PACKS
+
+
 def _csr(n_entries=600):
     eid = RNG.integers(0, 5000, size=n_entries).astype(np.int32)
     efp = RNG.integers(0, 64, size=n_entries).astype(np.uint16)
@@ -183,14 +326,16 @@ def test_cpu_tensors_never_launch_a_kernel():
 # ---------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 256, 300])
-def test_cuda_lsh_hash_kernel_matches_plain(cuda, n):
-    """SIFT1M-shaped family (d=128, m=23): exact on hashes clear of a
-    boundary, flips counted among the rest."""
-    r, L, m, d = 3, 32, 23, 128
+@pytest.mark.parametrize("n", [1, 2, 33, 256, 300])
+@pytest.mark.parametrize("r,L,m,d", [(7, 32, 23, 128), (3, 8, 13, 100)])
+def test_cuda_lsh_hash_kernel_matches_plain(cuda, n, r, L, m, d):
+    """The SIFT1M family (r=7, L=32, m=23, d=128) and a ragged one (m=13,
+    d=100: 16-column hashes, 4-byte copies), from a lone query to a batch
+    past the block rows: exact on hashes clear of a boundary, flips counted
+    among the rest."""
     a, b, rm = _t(*_family(r, L, m, d), device=cuda)
     x = torch.from_numpy(RNG.normal(size=(n, d)).astype(np.float32) * 3).to(cuda)
-    radii = (1.0, 2.0, 4.0)
+    radii = tuple(2.0 ** t for t in range(r))
     kw = dict(w=4.0, radii=radii, u=18, fp_bits=14)
     launches = KERNELS[0].launches
     bk, fp = lsh_hash_all_radii(x, a, b, rm, **kw)
@@ -198,6 +343,14 @@ def test_cuda_lsh_hash_kernel_matches_plain(cuda, n):
     assert KERNELS[0].launches == launches + 1
     bk_p, fp_p = lsh_hash_all_radii_ref(x, a, b, rm, **kw)
     _assert_hashes_agree(bk, fp, bk_p, fp_p, floor_margin(x, a, b, w=4.0, radii=radii))
+
+
+@pytest.mark.cuda
+def test_cuda_lsh_hash_refuses_m_past_the_block(cuda):
+    a, b, rm = _t(*_family(1, 2, 97, 8), device=cuda)
+    with pytest.raises(ValueError, match="at most 96"):
+        lsh_hash_all_radii(torch.zeros((2, 8), device=cuda), a, b, rm,
+                           w=4.0, radii=(1.0,), u=10, fp_bits=8)
 
 
 @pytest.mark.cuda
