@@ -27,7 +27,10 @@ and holds each to the repo's own contracts:
      reads equal to the io_count replay;
   5. each kernel against its plain PyTorch version on the card at the
      paths' shapes plus ragged ones, with its median time, its plain
-     version's and a library yardstick's.
+     version's and a library yardstick's: ``lsh_hash``, the fused probe
+     (``probe_append``) and the distance epilogue by id
+     (``l2_distance_by_id``) at radius 0 of the batch, the dense
+     ``l2_distance`` at one block of the exact scan.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -436,6 +439,133 @@ def dense_kernel_phase(torch, dev, flush):
     return worst, t_k, t_p, t_l, b_ms, b_by
 
 
+def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
+    """``probe_append`` and ``l2_distance_by_id`` against their plain
+    versions on radius 0 of the batch (the hash stage's real buckets, every
+    query active, and the buffer the probe fills), plus ragged cases on
+    radius 0 and the last radius: a lone query, inactive queries, L < 32, a
+    budget that runs out inside a step, one and four chain steps, a strided
+    and a narrower buffer. Times both at radius 0 of the batch. Returns the
+    two kernels' records."""
+    from repro_torch.core import query as tq
+    from repro_torch.kernels import (INVALID, l2_distance_by_id, l2_distance_by_id_ref,
+                                     probe_append, probe_append_ref)
+
+    Q, D = queries.shape
+    cnt_all, head_all, qfp_all = tq.hash_stage(ix, queries, cfg)
+    cnt, head, qfp = cnt_all[0], head_all[0], qfp_all[0]
+    active = torch.ones(Q, dtype=torch.bool, device=dev)
+    sbuf, BLKp = tq._fused_sbuf(cfg), ix.ids_blocks.shape[1]
+    pkw = dict(block_objs=cfg.block_objs, max_chain=cfg.max_chain, S=cfg.S, sbuf=sbuf)
+    some = torch.arange(Q, device=dev) % 3 != 1
+    # the ragged cases also run on the last radius' buckets, the largest,
+    # where a budget of 13 runs out inside a step
+    t = cnt_all.shape[0] - 1
+    last = (cnt_all[t], head_all[t], qfp_all[t])
+    cases = [("r0_batch", (cnt, head, qfp, active), pkw),
+             ("r0_lone", (cnt[:1], head[:1], qfp[:1], active[:1]), pkw)]
+    for r_label, (c_, h_, f_) in (("r0", (cnt, head, qfp)), (f"r{t}", last)):
+        cases += [(f"{r_label}_inactive_third", (c_, h_, f_, some), pkw),
+                  (f"{r_label}_L7",
+                   tuple(x[:, :7].contiguous() for x in (c_, h_, f_)) + (active,), pkw),
+                  (f"{r_label}_S13_sbuf21", (c_, h_, f_, active), dict(pkw, S=13, sbuf=21)),
+                  (f"{r_label}_C1", (c_, h_, f_, some), dict(pkw, max_chain=1)),
+                  (f"{r_label}_C4", (c_, h_, f_, some), dict(pkw, max_chain=4))]
+    for label, args, kw in cases:
+        got = probe_append(*args, ix.ids_blocks, ix.fps_blocks, **kw)
+        want = probe_append_ref(*args, ix.ids_blocks, ix.fps_blocks, **kw)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        say("bucket_probe", case=label, Q=args[0].shape[0], L=args[0].shape[1],
+            C=kw["max_chain"], S=kw["S"], sbuf=kw["sbuf"], exact=same,
+            cands=int(got[1].sum()), blocks_read=int(got[2].sum()),
+            full_budget=int((got[1] == kw["S"]).sum()))
+        check(same, f"probe_append disagrees with its plain version ({label})")
+    L = cnt.shape[1]
+
+    def probe_bound(rows_read):
+        # the rows the gate reads, both arrays; the [Q, L] inputs, the mask;
+        # the buffer and the two counts out. Two compares and a select a slot.
+        return bound_ms(rows_read * 2 * BLKp * 4 + 3 * Q * L * 4 + Q + Q * sbuf * 4 + 2 * Q * 4,
+                        rows_read * BLKp * 3)
+
+    pargs = (cnt, head, qfp, active, ix.ids_blocks, ix.fps_blocks)
+    buf, count, blocks = probe_append(*pargs, **pkw)
+    t_k = median_ms(torch, lambda: probe_append(*pargs, **pkw), flush=flush)
+    t_p = median_ms(torch, lambda: probe_append_ref(*pargs, **pkw), flush=flush)
+    rows_read = int(blocks.sum())
+    b_ms, b_by = probe_bound(rows_read)
+    say("bucket_probe", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}", rows_read=rows_read,
+        cands=int(count.sum()), bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bound_share=f"{b_ms / t_k:.3f}")
+    largs = last + (active, ix.ids_blocks, ix.fps_blocks)
+    buf_last, count_last, blocks_last = probe_append(*largs, **pkw)
+    t_last = median_ms(torch, lambda: probe_append(*largs, **pkw), flush=flush)
+    bl_ms, _ = probe_bound(int(blocks_last.sum()))
+    say("bucket_probe", radius=t, ms=f"{t_last:.4f}", rows_read=int(blocks_last.sum()),
+        cands=int(count_last.sum()), bound_ms=f"{bl_ms:.4f}",
+        bound_share=f"{bl_ms / t_last:.3f}")
+    records = [dict(name="bucket_probe", route="cuda",
+                    source="src/repro_torch/csrc/bucket_probe.cu",
+                    replaces="src/repro/kernels/bucket_probe/kernel.py:38",
+                    launches=launches["bucket_probe"], max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+    qn2 = (queries * queries).sum(-1)
+    wide = torch.cat([buf, buf[:, :5]], dim=1)
+    worst = 0.0
+    for label, qs, ids, qq, whole in (
+            ("r0_batch", queries, buf, qn2, buf), ("r0_lone", queries[:1], buf[:1], qn2[:1], buf),
+            ("r0_strided", queries, wide[:, :sbuf], qn2, buf),
+            ("r0_narrow", queries, buf[:, :sbuf - 3].contiguous(), qn2, buf),
+            (f"r{t}_batch", queries, buf_last, qn2, buf_last)):
+        got = l2_distance_by_id(qs, ids, ix.db, ix.db_norm2, qq)
+        want = l2_distance_by_id_ref(qs, ids, ix.db, ix.db_norm2, qq)
+        inf_same = bool(torch.equal(torch.isinf(got), ids == INVALID))
+        err = float((got - want).abs().nan_to_num(posinf=0.0).max())
+        worst = max(worst, err)
+        # a slot's value depends on its (query, id) only
+        batch = l2_distance_by_id(queries, whole, ix.db, ix.db_norm2, qn2)
+        same_bits = bool(torch.equal(got, batch[: qs.shape[0], : ids.shape[1]]))
+        say("l2_distance_gathered", case=label, Q=qs.shape[0], sbuf=ids.shape[1], D=D,
+            valid_slots=int((ids != INVALID).sum()), max_abs_err=f"{err:.3e}",
+            inf_on_invalid=inf_same, equal_to_batch=same_bits)
+        check(inf_same and bool(torch.allclose(got, want, rtol=TOL, atol=TOL)),
+              f"l2_distance_by_id disagrees with its plain version ({label})")
+        check(same_bits, f"l2_distance_by_id: {label} differs from the batch's bits")
+    def by_id_bound(n_valid):
+        # a valid slot's row and norm; every slot's id in and distance out;
+        # the query and its norm
+        return bound_ms(n_valid * (D + 1) * 4 + 2 * Q * sbuf * 4 + Q * (D + 1) * 4,
+                        n_valid * (2 * D + 3))
+
+    dargs = (queries, buf, ix.db, ix.db_norm2, qn2)
+    valid = buf != INVALID
+    n_valid = int(valid.sum())
+    ids64 = torch.where(valid, buf, 0).to(torch.int64)
+    base = (ix.db_norm2[ids64] + qn2[:, None]).unsqueeze(-1)
+    qcol = queries.unsqueeze(-1)
+    t_k = median_ms(torch, lambda: l2_distance_by_id(*dargs), flush=flush)
+    t_p = median_ms(torch, lambda: l2_distance_by_id_ref(*dargs), flush=flush)
+    t_l = median_ms(torch, lambda: torch.baddbmm(base, ix.db[ids64], qcol, alpha=-2.0),
+                    flush=flush)
+    b_ms, b_by = by_id_bound(n_valid)
+    say("l2_distance_gathered", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+        library_gather_baddbmm_ms=f"{t_l:.4f}", valid_slots=n_valid, bound_ms=f"{b_ms:.4f}",
+        bound_by=b_by, bound_share=f"{b_ms / t_k:.3f}")
+    n_last = int((buf_last != INVALID).sum())
+    t_last = median_ms(torch, lambda: l2_distance_by_id(queries, buf_last, ix.db, ix.db_norm2,
+                                                        qn2), flush=flush)
+    bl_ms, _ = by_id_bound(n_last)
+    say("l2_distance_gathered", radius=t, ms=f"{t_last:.4f}", valid_slots=n_last,
+        bound_ms=f"{bl_ms:.4f}", bound_share=f"{bl_ms / t_last:.3f}")
+    records.append(dict(name="l2_distance_gathered", route="cuda",
+                        source="src/repro_torch/csrc/l2_distance.cu",
+                        replaces="src/repro/kernels/l2_distance/kernel.py:66",
+                        launches=launches["l2_distance"], max_abs_err=worst, ms=t_k,
+                        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database size")
@@ -457,11 +587,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import E2LSHoS, SearchEngine, overall_ratio
-    from repro_torch.core import query as tq
     from repro_torch.data import make_dataset
-    from repro_torch.kernels import (KERNELS, bucket_probe, bucket_probe_ref,
-                                     l2_distance_gathered, l2_distance_gathered_ref,
-                                     lsh_hash_all_radii, lsh_hash_all_radii_ref)
+    from repro_torch.kernels import KERNELS, lsh_hash_all_radii, lsh_hash_all_radii_ref
     from repro_torch.kernels.build import build_all, kernel_names, library_path
     from repro_torch.kernels.lsh_hash.ops import index_hash_pack
 
@@ -631,75 +758,9 @@ def main(argv=None) -> int:
                        launches=launches["lsh_hash"], max_abs_err=float(worst), ms=t_k,
                        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # bucket_probe: radius 0's chain rows for the whole batch, as the fused
-    # probe builds them (every query active)
-    cnt_all, head_all, qfp_all = tq.hash_stage(ix, queries, cfg)
-    C, BLKp = cfg.max_chain, ix.ids_blocks.shape[1]
-    steps = torch.arange(C, device=dev, dtype=torch.int32)
-    cnt, head = cnt_all[0], head_all[0]
-    readable = (cnt[:, None, :] > 0) & (cnt[:, None, :] > steps[None, :, None] * cfg.block_objs)
-    rows = torch.where(readable, head[:, None, :] + steps[None, :, None], 0)
-    rows = rows.reshape(-1).to(torch.int32).contiguous()
-    qfp = qfp_all[0][:, None, :].expand(Q, C, L).reshape(-1).contiguous()
-    G = rows.shape[0]
-    worst = 0
-    for g in (G, G - 3, 1):
-        got = bucket_probe(rows[:g].contiguous(), qfp[:g].contiguous(),
-                           ix.ids_blocks, ix.fps_blocks)
-        want = bucket_probe_ref(rows[:g], qfp[:g], ix.ids_blocks, ix.fps_blocks)
-        diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        worst = max(worst, diff)
-        say("bucket_probe", G=g, BLKp=BLKp, matches=int((got != tq.INVALID).sum()),
-            max_abs_err=diff)
-        check(diff == 0, f"bucket_probe disagrees with its plain version at G={g}")
-    t_k = median_ms(torch, lambda: bucket_probe(rows, qfp, ix.ids_blocks, ix.fps_blocks),
-                    flush=flush)
-    t_p = median_ms(torch, lambda: bucket_probe_ref(rows, qfp, ix.ids_blocks, ix.fps_blocks),
-                    flush=flush)
-    rows64 = rows.to(torch.int64)
-    t_y = median_ms(torch, lambda: ix.ids_blocks.index_select(0, rows64), flush=flush)
-    distinct = int(torch.unique(rows).numel())
-    b_ms, b_by = bound_ms(2 * G * 4 + 2 * distinct * BLKp * 4 + G * BLKp * 4, G * BLKp * 3)
-    say("bucket_probe", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-        yardstick_one_row_gather_ms=f"{t_y:.4f}", distinct_rows=distinct,
-        bound_ms=f"{b_ms:.4f}", bound_by=b_by)
-    record.append(dict(name="bucket_probe", route="cuda",
-                       source="src/repro_torch/csrc/bucket_probe.cu",
-                       replaces="src/repro/kernels/bucket_probe/kernel.py:38",
-                       launches=launches["bucket_probe"], max_abs_err=float(worst), ms=t_k,
-                       plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
-
-    # l2_distance_gathered: a candidate buffer of the fused probe's width
-    S = tq._fused_sbuf(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cand = torch.randint(0, ix.db.shape[0], (Q, S), device=dev, generator=gen)
-    coords, xn2 = ix.db[cand], ix.db_norm2[cand]
-    qn2 = (queries * queries).sum(-1)
-    worst = 0.0
-    for nq, ns in ((Q, S), (1, S), (Q, S - 3)):
-        args_k = (queries[:nq].contiguous(), coords[:nq, :ns].contiguous(),
-                  xn2[:nq, :ns].contiguous(), qn2[:nq].contiguous())
-        got = l2_distance_gathered(*args_k)
-        want = l2_distance_gathered_ref(*args_k)
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        say("l2_distance_gathered", Q=nq, S=ns, D=D, max_abs_err=f"{err:.3e}")
-        check(bool(torch.allclose(got, want, rtol=TOL, atol=TOL)),
-              f"l2_distance_gathered disagrees with its plain version at Q={nq} S={ns}")
-    base = (xn2 + qn2[:, None]).unsqueeze(-1)
-    qcol = queries.unsqueeze(-1)
-    t_k = median_ms(torch, lambda: l2_distance_gathered(queries, coords, xn2, qn2), flush=flush)
-    t_p = median_ms(torch, lambda: l2_distance_gathered_ref(queries, coords, xn2, qn2),
-                    flush=flush)
-    t_l = median_ms(torch, lambda: torch.baddbmm(base, coords, qcol, alpha=-2.0), flush=flush)
-    b_ms, b_by = bound_ms(4 * (Q * S * D + Q * D + 2 * Q * S + Q), 2 * Q * S * D + 3 * Q * S)
-    say("l2_distance_gathered", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-        library_baddbmm_ms=f"{t_l:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
-    record.append(dict(name="l2_distance_gathered", route="cuda",
-                       source="src/repro_torch/csrc/l2_distance.cu",
-                       replaces="src/repro/kernels/l2_distance/kernel.py:66",
-                       launches=launches["l2_distance"], max_abs_err=worst, ms=t_k,
-                       plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    # the fused probe (bucket_probe.cu) and the distance epilogue
+    # (l2_distance.cu) at radius 0 of the batch, as the fused plan calls them
+    record += probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush)
 
     # l2_distance (dense): one block of the exact scan
     worst, t_k, t_p, t_l, b_ms, b_by = dense_kernel_phase(torch, dev, flush)

@@ -17,9 +17,10 @@ One entry point over the plans of one single-device index:
 * ``plan="fused"`` — the production plan. A hash stage hashes the batch for
   the whole radius schedule in one ``lsh_hash`` launch and looks up every
   bucket's size and chain head in two gathers; a probe stage then runs the
-  radius loop: per radius one ``bucket_probe`` launch reads every chain
-  block row, an S-budget scan and a compact append build the candidate
-  buffer, and one ``l2_distance_gathered`` launch computes its distances.
+  radius loop: per radius one ``probe_append`` launch reads the chain block
+  rows under the S budget and appends the fingerprint matches to the
+  candidate buffer, and one ``l2_distance_by_id`` launch gathers the
+  candidates' rows and computes their distances.
   The loop leaves early when every query is done, which costs one
   ``done.all()`` device->host sync per radius (at most r): PyTorch runs
   eagerly, and without the sync every batch would pay for all r radii.
@@ -54,10 +55,11 @@ import torch
 
 from .index import IndexArrays
 from .probabilities import LSHParams
-from ..kernels.bucket_probe.ops import INVALID, bucket_probe
+from ..kernels.bucket_probe.ops import INVALID, probe_append
+from ..kernels.bucket_probe.ref import append_candidates
 from ..kernels.dispatch import resolve_device
-from ..kernels.l2_distance.ops import l2_distance_gathered
-from ..kernels.l2_distance.ref import l2_distance_gathered_ref
+from ..kernels.l2_distance.ops import l2_distance_by_id
+from ..kernels.l2_distance.ref import l2_distance_by_id_ref
 from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_all_radii
 from ..kernels.lsh_hash.ref import lsh_hash_ref
 
@@ -163,33 +165,6 @@ class QueryResult:
                               for f in dataclasses.fields(QueryResult)})
 
 
-def _append_candidates(buf_id, count, flat_id, flat_ok, S: int):
-    """Compact-append fingerprint matches into the candidate buffer
-    (truncated at S). Entries that do not fit go to one extra dump column
-    that is sliced off: the scatter counterpart of the reference's
-    ``mode="drop"``."""
-    Q, sbuf = buf_id.shape
-    ok = flat_ok.to(torch.int32)
-    pos = count[:, None] + torch.cumsum(ok, dim=1, dtype=torch.int32) - ok
-    keep = flat_ok & (pos < S)
-    pos_w = torch.where(keep, pos, sbuf).to(torch.int64)
-    wide = torch.cat([buf_id, buf_id.new_full((Q, 1), INVALID)], dim=1)
-    wide.scatter_(1, pos_w, flat_id)
-    count = torch.clamp(count + ok.sum(dim=1, dtype=torch.int32), max=S)
-    return wide[:, :sbuf], count
-
-
-def _gather_distances(ix: IndexArrays, queries, qnorm2, buf_id, distance_fn):
-    """Step 3: distances of the candidate buffer against the DRAM tier,
-    masked to inf on empty slots and clamped at 0."""
-    valid = buf_id != INVALID
-    safe_id = torch.where(valid, buf_id, 0).to(torch.int64)
-    coords = ix.db[safe_id]                                   # [Q, SBUF, d]
-    xn2 = ix.db_norm2[safe_id]
-    d2 = distance_fn(queries, coords, xn2, qnorm2)
-    return torch.where(valid, torch.clamp(d2, min=0.0), torch.inf)
-
-
 def _probe_radius(ix: IndexArrays, queries, qnorm2, t: int, radius: float,
                   cfg: QueryConfig, active_q):
     """One (R, c)-NN probe for every query in the batch (ORACLE plan), over
@@ -218,10 +193,10 @@ def _probe_radius(ix: IndexArrays, queries, qnorm2, t: int, radius: float,
         idx_safe = torch.where(ok_read, idx, 0).to(torch.int64)
         eid = ix.entries_id[idx_safe]
         ok = ok_read & (ix.entries_fp[idx_safe] == qfp[:, :, None])
-        buf_id, count = _append_candidates(
+        buf_id, count = append_candidates(
             buf_id, count, eid.reshape(Q, L * BLK), ok.reshape(Q, L * BLK), S)
 
-    d2 = _gather_distances(ix, queries, qnorm2, buf_id, l2_distance_gathered_ref)
+    d2 = l2_distance_by_id_ref(queries, buf_id, ix.db, ix.db_norm2, qnorm2)
     stats = dict(nio_table=nonempty.sum(dim=1, dtype=torch.int32),
                  nio_blocks=blocks_read, cands=count)
     if cfg.collect_probe_sizes:
@@ -240,50 +215,19 @@ def _probe_radius_fused(ix: IndexArrays, queries, qnorm2, cnt, head, qfp,
                         cfg: QueryConfig, active_q):
     """One (R, c)-NN probe on the block store (FUSED plan).
 
-    ``cnt``/``head``/``qfp`` [Q, L] come from the hash stage. Step 2 reads
-    every chain step's block rows through ONE bucket_probe launch, then folds
-    the oracle's sequential ``count < S`` read gate back in with a scan over
-    chain depth. Candidates, their order and the I/O counts equal
-    ``_probe_radius``'s: the block rows hold the CSR chunks' entries,
-    flattened in the oracle's (step, l, slot) order.
+    ``cnt``/``head``/``qfp`` [Q, L] come from the hash stage. Step 2 is one
+    ``probe_append`` launch: every chain step's block rows read under the
+    oracle's sequential ``count < S`` gate, their fingerprint matches
+    appended in the oracle's (step, l, slot) order; step 3 is one
+    ``l2_distance_by_id`` launch over the buffer's ids. Candidates, their
+    order and the I/O counts equal ``_probe_radius``'s: the block rows hold
+    the CSR chunks' entries.
     """
-    Q = queries.shape[0]
-    L, BLK, S, C = cfg.L, cfg.block_objs, cfg.S, cfg.max_chain
-    BLKp = ix.ids_blocks.shape[1]
-    dev = queries.device
+    buf_id, count, blocks_read = probe_append(
+        cnt, head, qfp, active_q, ix.ids_blocks, ix.fps_blocks, block_objs=cfg.block_objs,
+        max_chain=cfg.max_chain, S=cfg.S, sbuf=_fused_sbuf(cfg))
+    d2 = l2_distance_by_id(queries, buf_id, ix.db, ix.db_norm2, qnorm2)
     nonempty = (cnt > 0) & active_q[:, None]
-
-    # chunk c of bucket (q, l) is row head + c; chunks past the chain end and
-    # masked queries read the empty spare row 0
-    steps = torch.arange(C, device=dev, dtype=torch.int32)
-    readable = nonempty[:, None, :] & (cnt[:, None, :] > steps[None, :, None] * BLK)
-    rows = torch.where(readable, head[:, None, :] + steps[None, :, None], 0)
-    qfp_rep = qfp.to(torch.int32)[:, None, :].expand(Q, C, L)
-    filt = bucket_probe(rows.reshape(-1).to(torch.int32).contiguous(),
-                        qfp_rep.reshape(-1).contiguous(),
-                        ix.ids_blocks, ix.fps_blocks)         # [Q*C*L, BLKp]
-    match = filt.view(Q, C, L * BLKp)
-    hit = match != INVALID
-
-    # replay the oracle's per-step S-budget gate: chunks at depth c are read
-    # iff the count entering step c is below S (count only grows)
-    m_all = hit.sum(dim=2, dtype=torch.int32)                 # [Q, C]
-    count = torch.zeros((Q,), dtype=torch.int32, device=dev)
-    gates = []
-    for c in range(C):
-        gate = count < S
-        gates.append(gate)
-        count = torch.clamp(count + torch.where(gate, m_all[:, c], 0), max=S)
-    step_active = torch.stack(gates, dim=1)                   # [Q, C]
-    blocks_read = (readable & step_active[:, :, None]).sum(dim=(1, 2), dtype=torch.int32)
-
-    buf_id = torch.full((Q, _fused_sbuf(cfg)), INVALID, dtype=torch.int32, device=dev)
-    flat_ok = hit & step_active[:, :, None]
-    buf_id, count = _append_candidates(
-        buf_id, torch.zeros((Q,), dtype=torch.int32, device=dev),
-        match.reshape(Q, C * L * BLKp), flat_ok.reshape(Q, C * L * BLKp), S)
-
-    d2 = _gather_distances(ix, queries, qnorm2, buf_id, l2_distance_gathered)
     stats = dict(nio_table=nonempty.sum(dim=1, dtype=torch.int32),
                  nio_blocks=blocks_read, cands=count)
     if cfg.collect_probe_sizes:
@@ -440,12 +384,14 @@ def hash_stage(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig):
     """Step 1 for the whole schedule: one lsh_hash launch hashes every radius,
     then the table lookups; the kernel reads the index's hash pack, built at
     its first batch. queries [Q, d] float32 -> (cnt_all, head_all, qfp_all)
-    [r, Q, L]."""
+    [r, Q, L], contiguous (the probe kernel reads each radius' [Q, L] rows)."""
     bucket_all, qfp_all = lsh_hash_all_radii(
         queries, ix.a, ix.b, ix.rm, w=cfg.w, radii=cfg.radii, u=cfg.u,
         fp_bits=cfg.fp_bits, pack=index_hash_pack(ix, w=cfg.w, radii=cfg.radii))
-    cnt_all, head_all = table_lookup(ix, bucket_all, cfg)
-    return cnt_all, head_all, qfp_all
+    # the kernel's [N, r*L] outputs come as [r, N, L] views: one copy each
+    # per batch makes every radius' [Q, L] slices contiguous
+    cnt_all, head_all = table_lookup(ix, bucket_all.contiguous(), cfg)
+    return cnt_all, head_all, qfp_all.contiguous()
 
 
 def probe_stage(ix: IndexArrays, queries, qnorm2, cnt_all, head_all, qfp_all,

@@ -1,7 +1,9 @@
-"""bucket_probe wrapper and the index blockification.
+"""The fused probe's wrapper and the index blockification.
 
-``bucket_probe``: a CUDA tensor launches the hand-written kernel
-(``csrc/bucket_probe.cu``), a CPU tensor runs the plain version.
+``probe_append``: one radius of the fused probe (chain-row gather,
+fingerprint filter, S-budget gate, ordered compact append). A CUDA tensor
+launches the hand-written kernel (``csrc/bucket_probe.cu``), a CPU tensor
+runs the plain version ``probe_append_ref``.
 
 ``blockify_entries`` converts the contiguous CSR entry layout of
 ``core.index`` into the [NB, BLKp] block-store rows (the paper's 512 B
@@ -17,13 +19,14 @@ import torch
 
 from ..build import CudaKernel
 from ..dispatch import check_operand, use_kernel
-from .ref import INVALID, bucket_probe_ref
+from .ref import INVALID, probe_append_ref
 
-__all__ = ["bucket_probe", "blockify_entries", "INVALID", "KERNEL"]
+__all__ = ["probe_append", "blockify_entries", "INVALID", "KERNEL"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("bucket_probe", "bucket_probe_launch", [_P] * 5 + [_I] * 2 + [_P])
+KERNEL = CudaKernel("bucket_probe", "probe_append_launch", [_P] * 9 + [_I] * 7 + [_P])
 
+_MAX_L = 4096     # 3 * L int32 of the kernel's shared memory within 48 KB
 _CHUNK = 1 << 24  # entries per scatter step: bounds the int64 scratch to ~128 MB
 
 
@@ -68,31 +71,52 @@ def blockify_entries(entries_id, entries_fp, table_off, table_cnt,
     return ids_blocks, fps_blocks, head.view(table_off.shape), NB
 
 
-def bucket_probe(block_rows, qfp, ids_blocks, fps_blocks):
-    """Fetch + fingerprint-filter a list of bucket block rows.
+def probe_append(cnt, head, qfp, active_q, ids_blocks, fps_blocks, *,
+                 block_objs: int, max_chain: int, S: int, sbuf: int):
+    """One radius of the fused probe for every query of a batch.
 
-    block_rows [G] int32 (0 <= row < NB; row 0 is the empty spare used as
-    padding), qfp [G] int32, ids/fps_blocks [NB, BLKp] int32.
-    Returns [G, BLKp] int32 with INVALID in non-matching slots.
+    cnt/head/qfp [Q, L] int32 (bucket sizes, chain-head rows, query
+    fingerprints), active_q [Q] bool, ids/fps_blocks [NB, BLKp] int32.
+    Chunk c < max_chain of bucket (q, l) is row head + c, readable iff
+    active_q[q] and cnt > c * block_objs; step c is read iff fewer than S
+    candidates were collected before it, and then all its readable rows
+    are. Returns (buf_id [Q, sbuf] int32: the read steps' fingerprint
+    matches in (step, l, slot) order, the first S of them, INVALID after;
+    count [Q] int32, min(matches, S); blocks_read [Q] int32, the readable
+    rows of the read steps).
     """
-    if not use_kernel(block_rows, qfp, ids_blocks, fps_blocks):
-        return bucket_probe_ref(block_rows, qfp, ids_blocks, fps_blocks)
-    for name, t, nd in (("block_rows", block_rows, 1), ("qfp", qfp, 1),
-                        ("ids_blocks", ids_blocks, 2), ("fps_blocks", fps_blocks, 2)):
-        check_operand("bucket_probe", name, t, torch.int32, nd)
-    G = block_rows.shape[0]
-    NB, blkp = ids_blocks.shape
-    if qfp.shape[0] != G or fps_blocks.shape != ids_blocks.shape:
-        raise ValueError(f"bucket_probe: shapes disagree: rows {G}, qfp "
-                         f"{tuple(qfp.shape)}, ids {tuple(ids_blocks.shape)}, "
+    Q, L = cnt.shape
+    if head.shape != (Q, L) or qfp.shape != (Q, L) or active_q.shape != (Q,) \
+            or fps_blocks.shape != ids_blocks.shape or ids_blocks.dim() != 2:
+        raise ValueError(f"probe_append: shapes disagree: cnt {tuple(cnt.shape)}, head "
+                         f"{tuple(head.shape)}, qfp {tuple(qfp.shape)}, active_q "
+                         f"{tuple(active_q.shape)}, ids {tuple(ids_blocks.shape)}, "
                          f"fps {tuple(fps_blocks.shape)}")
+    if max_chain < 1 or block_objs < 1 or not 0 < S <= sbuf:
+        raise ValueError(f"probe_append: need max_chain >= 1, block_objs >= 1 and "
+                         f"0 < S <= sbuf, got max_chain={max_chain} "
+                         f"block_objs={block_objs} S={S} sbuf={sbuf}")
+    kw = dict(block_objs=block_objs, max_chain=max_chain, S=S, sbuf=sbuf)
+    if not use_kernel(cnt, head, qfp, active_q, ids_blocks, fps_blocks):
+        return probe_append_ref(cnt, head, qfp, active_q, ids_blocks, fps_blocks, **kw)
+    for name, t, nd in (("cnt", cnt, 2), ("head", head, 2), ("qfp", qfp, 2),
+                        ("ids_blocks", ids_blocks, 2), ("fps_blocks", fps_blocks, 2)):
+        check_operand("probe_append", name, t, torch.int32, nd)
+    check_operand("probe_append", "active_q", active_q, torch.bool, 1)
+    blkp = ids_blocks.shape[1]
     if blkp % 4 or ids_blocks.data_ptr() % 16 or fps_blocks.data_ptr() % 16:
-        raise ValueError(f"bucket_probe: rows must be whole 16 B vectors "
+        raise ValueError(f"probe_append: rows must be whole 16 B vectors "
                          f"(BLKp={blkp} must be a multiple of 4, 16 B-aligned)")
-    out = torch.empty((G, blkp), dtype=torch.int32, device=ids_blocks.device)
-    if G:
-        with torch.cuda.device(ids_blocks.device):
-            KERNEL(block_rows.data_ptr(), qfp.data_ptr(), ids_blocks.data_ptr(),
-                   fps_blocks.data_ptr(), out.data_ptr(), G, blkp,
-                   torch.cuda.current_stream(ids_blocks.device).cuda_stream)
-    return out
+    if L > _MAX_L:
+        raise ValueError(f"probe_append: the kernel stages a query's tables in "
+                         f"shared memory and takes L <= {_MAX_L}, got L = {L}")
+    dev = ids_blocks.device
+    buf_id = torch.empty((Q, sbuf), dtype=torch.int32, device=dev)
+    counts = torch.empty((2, Q), dtype=torch.int32, device=dev)
+    if Q:
+        with torch.cuda.device(dev):
+            KERNEL(cnt.data_ptr(), head.data_ptr(), qfp.data_ptr(), active_q.data_ptr(),
+                   ids_blocks.data_ptr(), fps_blocks.data_ptr(), buf_id.data_ptr(),
+                   counts[0].data_ptr(), counts[1].data_ptr(), Q, L, max_chain,
+                   block_objs, S, sbuf, blkp, torch.cuda.current_stream(dev).cuda_stream)
+    return buf_id, counts[0], counts[1]

@@ -68,7 +68,7 @@ def native_lane_pad() -> int:
     to this). The reference pads to 128 for the TPU's lane width; on the card
     8 is enough: at ``block_objs`` = 99, BLKp = 104, so each row of
     ``ids_blocks``/``fps_blocks`` is 416 B — a multiple of 16 B, so the
-    bucket_probe kernel reads it with aligned ``int4`` loads — and the gather
+    probe kernel reads it with aligned ``int4`` loads — and the gather
     streams 5 dead lanes per row instead of 29. The CPU path uses the same
     layout, so both devices hold identical indexes."""
     return 8

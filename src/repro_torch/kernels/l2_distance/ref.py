@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["l2_distance_ref", "l2_distance_gathered_ref"]
+from ..bucket_probe.ref import INVALID
+
+__all__ = ["l2_distance_ref", "l2_distance_gathered_ref", "l2_distance_by_id_ref"]
 
 
 def l2_distance_ref(q, x):
@@ -30,3 +32,16 @@ def l2_distance_gathered_ref(q, coords, xn2, qn2):
     """
     dot = (coords.to(torch.float32) * q.to(torch.float32)[:, None, :]).sum(-1)
     return xn2 - 2.0 * dot + qn2[:, None]
+
+
+def l2_distance_by_id_ref(q, buf_id, db, db_norm2, qn2):
+    """Step 3 of the plans over a candidate buffer of ids: the candidates'
+    rows and norms gathered from the DRAM tier, ``l2_distance_gathered_ref``
+    on them, clamped at 0 and +inf on INVALID slots.
+
+    q [Q, D], buf_id [Q, S] int32, db [N, D], db_norm2 [N], qn2 [Q]
+    -> d2 [Q, S] float32."""
+    valid = buf_id != INVALID
+    safe_id = torch.where(valid, buf_id, 0).to(torch.int64)
+    d2 = l2_distance_gathered_ref(q, db[safe_id], db_norm2[safe_id], qn2)
+    return torch.where(valid, torch.clamp(d2, min=0.0), torch.inf)

@@ -20,19 +20,32 @@ built beforehand, as the plans call it.
 
 Shapes, those of the SIFT1M configuration in ``chip_smoke.py``:
 ``lsh_hash`` with r = 7, L = 32, m = 23, D = 128 (u = 18, fp_bits = 14,
-radii 1..64) at Q = 256 and 2; ``bucket_probe`` over 16,384 chain rows of
-104 lanes out of 19,158,070; ``l2_distance_gathered`` at Q = 256, S = 64;
-dense ``l2_distance`` at the exact scan's block, 256 x 16,384.
+radii 1..64) at Q = 256 and 2; ``probe_append`` at radius 0 (Q = 256,
+L = 32, two chain steps of 99 objects, S = 64) over synthetic block rows,
+19,158,070 of 104 lanes; ``l2_distance_by_id`` over the buffer it fills,
+ids into 10^6 rows of D = 128; dense ``l2_distance`` at the exact scan's
+block, 256 x 16,384. A case whose wrapper the checkout lacks is skipped.
+
+The ``stage`` case times ``core.query._probe_radius_fused``, one radius of
+the fused plan, on the same inputs in any checkout that has that function
+with the signature ``(ix, queries, qnorm2, cnt, head, qfp, cfg, active_q)``:
+its median device span by CUDA events as above, its median wall time on the
+host clock (call to ``synchronize``, no flush: the eager dispatch of its
+operations counts), and the device events one call runs, with their summed
+device time, from ``torch.profiler``. Its outputs are held to the same call
+on the CPU (the checkout's plain path) over a compact copy of the rows the
+call can read.
 """
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import time
+import types
 
 TOL = 2e-4      # the reference's kernel tolerance (tests/test_kernels.py)
 MARGIN = 1e-4   # hashes this far from a floor() boundary must agree
@@ -54,9 +67,59 @@ def median_ms(torch, fn, flush, iters=30, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def wall_ms(torch, fn, iters=30, warmup=3):
+    """Median host time of fn() through its device work (synchronized)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def device_events(torch, fn):
+    """(events, busy ms) on the device for one call of fn, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def probe_inputs(torch, gen, dev):
+    """Radius 0 of the SIFT1M batch on synthetic block rows: every query
+    active, bucket sizes 0..198 (chains of up to two 99-object chunks),
+    fingerprints in [0, 64) on rows and queries, so a step of 32 rows holds
+    ~37 matches and the budget S = 64 runs out in step 1 for most queries."""
+    Q, L, C, BLK, NB, BLKp, N, D = 256, 32, 2, 99, 19_158_070, 104, 1_000_000, 128
+    ids = torch.randint(0, N, (NB, BLKp), generator=gen, device=dev, dtype=torch.int32)
+    fps = torch.randint(0, 64, (NB, BLKp), generator=gen, device=dev, dtype=torch.int32)
+    ids[:, BLK:] = 2**31 - 1
+    fps[:, BLK:] = -1
+    ids[0], fps[0] = 2**31 - 1, -1
+    cnt = torch.randint(0, C * BLK + 1, (Q, L), generator=gen, device=dev, dtype=torch.int32)
+    head = torch.randint(1, NB - C, (Q, L), generator=gen, device=dev, dtype=torch.int32)
+    qfp = torch.randint(0, 64, (Q, L), generator=gen, device=dev, dtype=torch.int32)
+    db = torch.randn((N, D), generator=gen, device=dev)
+    q = torch.randn((Q, D), generator=gen, device=dev)
+    return dict(Q=Q, L=L, C=C, BLK=BLK, NB=NB, BLKp=BLKp, N=N, D=D, ids=ids, fps=fps,
+                cnt=cnt, head=head, qfp=qfp, active=torch.ones(Q, dtype=torch.bool, device=dev),
+                db=db, db_norm2=(db * db).sum(-1), q=q, qn2=(q * q).sum(-1))
+
+
 def cases(torch, K, dev):
-    """(kernel, shape, call, check) per timed case; check() returns the
-    largest error and raises AssertionError on a disagreement."""
+    """(kernel, libraries, shape, call, check) per timed case; check()
+    returns the largest error and raises AssertionError on a disagreement.
+    ``libraries`` are the kernel libraries the call must launch."""
+    from repro_torch.kernels.lsh_hash.ops import hash_pack
     from repro_torch.kernels.lsh_hash.ref import floor_margin
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -68,59 +131,93 @@ def cases(torch, K, dev):
     rm = torch.randint(-2**31, 2**31 - 1, (r, L, m), generator=gen, device=dev,
                        dtype=torch.int32) | 1
     hkw = dict(w=4.0, radii=tuple(2.0 ** t for t in range(r)), u=18, fp_bits=14)
-    if "pack" in inspect.signature(K.lsh_hash_all_radii).parameters:
-        from repro_torch.kernels.lsh_hash.ops import hash_pack
-        hkw_k = dict(hkw, pack=hash_pack(a, b, rm, w=hkw["w"], radii=hkw["radii"]))
-    else:
-        hkw_k = hkw
+    pack = hash_pack(a, b, rm, w=hkw["w"], radii=hkw["radii"])
     for n in (256, 2):
         x = randn(n, D) * 3
 
         def check_hash(x=x):
-            bk, fp = K.lsh_hash_all_radii(x, a, b, rm, **hkw_k)
+            bk, fp = K.lsh_hash_all_radii(x, a, b, rm, **hkw, pack=pack)
             bk_p, fp_p = K.lsh_hash_all_radii_ref(x, a, b, rm, **hkw)
             safe = floor_margin(x, a, b, w=hkw["w"], radii=hkw["radii"]) > MARGIN
             bad = int((safe & ((bk != bk_p) | (fp != fp_p))).sum())
             assert bad == 0, f"{bad} hashes clear of a boundary disagree"
             return 0.0
-        yield ("lsh_hash", dict(Q=n, r=r, L=L, m=m, D=D),
-               lambda x=x: K.lsh_hash_all_radii(x, a, b, rm, **hkw_k), check_hash)
+        yield ("lsh_hash", ("lsh_hash",), dict(Q=n, r=r, L=L, m=m, D=D),
+               lambda x=x: K.lsh_hash_all_radii(x, a, b, rm, **hkw, pack=pack), check_hash)
 
-    G, NB, BLKp = 16384, 19_158_070, 104
-    ids = torch.randint(0, 1_000_000, (NB, BLKp), generator=gen, device=dev,
-                        dtype=torch.int32)
-    fps = torch.randint(0, 1 << 14, (NB, BLKp), generator=gen, device=dev, dtype=torch.int32)
-    rows = torch.randint(1, NB, (G,), generator=gen, device=dev, dtype=torch.int32)
-    qfp = torch.randint(0, 1 << 14, (G,), generator=gen, device=dev, dtype=torch.int32)
+    P = probe_inputs(torch, gen, dev)
+    pargs = (P["cnt"], P["head"], P["qfp"], P["active"], P["ids"], P["fps"])
+    pkw = dict(block_objs=P["BLK"], max_chain=P["C"], S=64, sbuf=64)
+    pshape = dict(Q=P["Q"], L=P["L"], C=P["C"], S=64, BLKp=P["BLKp"], NB=P["NB"])
+    if hasattr(K, "probe_append"):
+        def check_probe():
+            got, want = K.probe_append(*pargs, **pkw), K.probe_append_ref(*pargs, **pkw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            return 0.0
+        yield ("probe_append", ("bucket_probe",), pshape,
+               lambda: K.probe_append(*pargs, **pkw), check_probe)
 
-    def check_probe():
-        got = K.bucket_probe(rows, qfp, ids, fps)
-        assert torch.equal(got, K.bucket_probe_ref(rows, qfp, ids, fps))
-        return 0.0
-    yield ("bucket_probe", dict(G=G, BLKp=BLKp, NB=NB),
-           lambda: K.bucket_probe(rows, qfp, ids, fps), check_probe)
+    if hasattr(K, "l2_distance_by_id"):
+        buf = K.probe_append_ref(*pargs, **pkw)[0]
+        dargs = (P["q"], buf, P["db"], P["db_norm2"], P["qn2"])
 
-    Q, S = 256, 64
-    q, coords = randn(Q, D), randn(Q, S, D)
-    xn2, qn2 = (coords * coords).sum(-1), (q * q).sum(-1)
+        def check_by_id():
+            got, want = K.l2_distance_by_id(*dargs), K.l2_distance_by_id_ref(*dargs)
+            assert torch.equal(torch.isinf(got), torch.isinf(want))
+            assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+            return float((got - want).abs().nan_to_num(posinf=0.0).max())
+        yield ("l2_distance_by_id", ("l2_distance",),
+               dict(Q=P["Q"], sbuf=64, D=P["D"], N=P["N"],
+                    valid=int((buf != 2**31 - 1).sum())),
+               lambda: K.l2_distance_by_id(*dargs), check_by_id)
 
-    def check_gathered():
-        got = K.l2_distance_gathered(q, coords, xn2, qn2)
-        want = K.l2_distance_gathered_ref(q, coords, xn2, qn2)
-        assert torch.allclose(got, want, rtol=TOL, atol=TOL)
-        return float((got - want).abs().max())
-    yield ("l2_distance_gathered", dict(Q=Q, S=S, D=D),
-           lambda: K.l2_distance_gathered(q, coords, xn2, qn2), check_gathered)
-
-    NC = 16384
-    xs = randn(NC, D)
+    q, xs = randn(256, D), randn(16384, D)
 
     def check_dense():
         got, want = K.l2_distance(q, xs), K.l2_distance_ref(q, xs)
         assert torch.allclose(got, want, rtol=TOL, atol=TOL)
         return float((got - want).abs().max())
-    yield ("l2_distance_dense", dict(NQ=Q, NC=NC, D=D),
+    yield ("l2_distance_dense", ("l2_distance_dense",), dict(NQ=256, NC=16384, D=D),
            lambda: K.l2_distance(q, xs), check_dense)
+
+    yield stage_case(torch, P, pshape)
+
+
+def stage_case(torch, P, pshape):
+    """One radius of the fused plan, ``core.query._probe_radius_fused``."""
+    from repro_torch.core import query as tq
+    cfg = tq.QueryConfig(L=P["L"], m=23, u=18, fp_bits=14, w=4.0, c=2.0,
+                         radii=tuple(2.0 ** t for t in range(7)), S=64,
+                         block_objs=P["BLK"], k=10, max_chain=P["C"])
+    ix = types.SimpleNamespace(ids_blocks=P["ids"], fps_blocks=P["fps"], db=P["db"],
+                               db_norm2=P["db_norm2"])
+    args = (P["q"], P["qn2"], P["cnt"], P["head"], P["qfp"], cfg, P["active"])
+
+    def call():
+        return tq._probe_radius_fused(ix, *args)
+
+    def check_stage():
+        # the rows the call can read, compacted: row 1 + C*(q*L + l) + c is
+        # row head[q, l] + c; row 0 stays the empty spare
+        Q, L, C = P["Q"], P["L"], P["C"]
+        rows = (P["head"][:, :, None] + torch.arange(C, device=P["head"].device)).reshape(-1)
+        ids = torch.cat([P["ids"][:1], P["ids"][rows.long()]]).cpu()
+        fps = torch.cat([P["fps"][:1], P["fps"][rows.long()]]).cpu()
+        head = (1 + C * torch.arange(Q * L, dtype=torch.int32)).view(Q, L)
+        ix_cpu = types.SimpleNamespace(ids_blocks=ids, fps_blocks=fps, db=P["db"].cpu(),
+                                       db_norm2=P["db_norm2"].cpu())
+        want = tq._probe_radius_fused(ix_cpu, P["q"].cpu(), P["qn2"].cpu(), P["cnt"].cpu(),
+                                      head, P["qfp"].cpu(), cfg, P["active"].cpu())
+        got = [x.cpu() if torch.is_tensor(x) else {k: v.cpu() for k, v in x.items()}
+               for x in call()]
+        assert torch.equal(got[0], want[0]), "candidate buffers differ"
+        assert got[2].keys() == want[2].keys()
+        assert all(torch.equal(got[2][k], want[2][k]) for k in want[2]), "stats differ"
+        assert torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
+        assert torch.allclose(got[1], want[1], rtol=TOL, atol=TOL)
+        return float((got[1] - want[1]).abs().nan_to_num(posinf=0.0).max())
+    return ("stage", ("bucket_probe", "l2_distance"),
+            dict(pshape, fn="core.query._probe_radius_fused", radius=0), call, check_stage)
 
 
 def main(argv=None) -> int:
@@ -150,20 +247,23 @@ def main(argv=None) -> int:
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     ok = True
     launchers = {k.name: k for k in K.KERNELS}
-    for kernel, shape, call, check in cases(torch, K, dev):
-        counter = launchers["l2_distance" if kernel == "l2_distance_gathered" else kernel]
-        before = counter.launches
+    for kernel, libs, shape, call, check in cases(torch, K, dev):
+        before = [launchers[n].launches for n in libs]
         try:
             err = check()
             torch.cuda.synchronize()
-            assert counter.launches > before, "no kernel launched"
+            assert all(launchers[n].launches > b for n, b in zip(libs, before)), \
+                f"no launch of {libs}"
         except AssertionError as e:
             print(f"timing: {kernel} {shape}: {e}", file=sys.stderr)
             ok = False
             continue
-        print(json.dumps(dict(src=args.src, kernel=kernel, shape=shape,
-                              ms=median_ms(torch, call, flush), max_abs_err=err)),
-              flush=True)
+        out = dict(src=args.src, kernel=kernel, shape=shape,
+                   ms=median_ms(torch, call, flush), max_abs_err=err)
+        if kernel == "stage":
+            out["wall_ms"] = wall_ms(torch, call)
+            out["device_events"], out["device_busy_ms"] = device_events(torch, call)
+        print(json.dumps(out), flush=True)
     return 0 if ok else 1
 
 

@@ -17,8 +17,8 @@ disk, and a query batch alternates device compute with host block fetches:
      ``reads`` ledger is the measured N_io that must equal the Eq. 6/7
      replay.
   3. **Fold (device, per rung).** The rung's candidate buffer and counters
-     go up in one pinned, non-blocking copy; the candidates' coordinates are
-     gathered by id, the ``l2_distance_gathered`` kernel computes their
+     go up in one pinned, non-blocking copy; the ``l2_distance_by_id``
+     kernel gathers the candidates' rows by id and computes their
      distances, and the fused plan's ``_update_state`` merges them. The fold
      holds no host sync (no ``.item()``, ``bool()`` or ``.cpu()`` on device
      data), so its launches return at once and the host **prefetches the
@@ -45,10 +45,10 @@ import torch
 
 from ..core.index import IndexStats
 from ..core.probabilities import LSHParams
-from ..core.query import (QueryConfig, QueryResult, _fused_sbuf, _gather_distances,
-                          _init_state, _pad_min_q, _prep_queries, _result_from_state,
-                          _thresholds, _update_state, hash_stage)
-from ..kernels.l2_distance.ops import l2_distance_gathered
+from ..core.query import (QueryConfig, QueryResult, _fused_sbuf, _init_state, _pad_min_q,
+                          _prep_queries, _result_from_state, _thresholds, _update_state,
+                          hash_stage)
+from ..kernels.l2_distance.ops import l2_distance_by_id
 from ..telemetry import get_registry, get_tracer
 from .blockstore import BlockStore, StoreStats
 
@@ -345,7 +345,7 @@ def _fold(ext: "ExternalIndex", queries, qnorm2, state, buf_id, nonempty,
     st = dict(nio_table=up[:, sb], nio_blocks=up[:, sb + 1], cands=up[:, sb + 2])
     if cfg.collect_probe_sizes:
         st["probe_sizes"] = up[:, sb + 3:]
-    d2 = _gather_distances(ext, queries, qnorm2, buf, l2_distance_gathered)
+    d2 = l2_distance_by_id(queries, buf, ext.db, ext.db_norm2, qnorm2)
     return _update_state(state, buf, d2, st, t, thresh2[t], cfg)
 
 
@@ -355,7 +355,8 @@ def _fold(ext: "ExternalIndex", queries, qnorm2, state, buf_id, nonempty,
 # --------------------------------------------------------------------------
 
 def _append_candidates_np(buf_id, count, flat_id, flat_ok, S):
-    """NumPy mirror of core.query._append_candidates (exact integer math)."""
+    """NumPy mirror of kernels.bucket_probe.ref.append_candidates (exact
+    integer math)."""
     ok = flat_ok.astype(np.int32)
     pos = count[:, None] + np.cumsum(ok, axis=1) - ok
     keep = flat_ok & (pos < S)
@@ -389,7 +390,7 @@ def _walk_rung_host(store: BlockStore, cnt, head, qfp, active_q,
         ids_rows, fps_rows = store.read_rows(step_rows)
         blocks_read += active.sum(axis=1, dtype=np.int32)
         # fingerprint filter (padding slots hold fp=-1 / id=INVALID, so the
-        # match test alone reproduces bucket_probe's semantics), scattered
+        # match test alone reproduces bucket_probe_ref's semantics), scattered
         # back to the oracle's (l, slot) flat order before the append
         ok = (fps_rows == qfp[qi, li][:, None]) & (ids_rows != _INVALID)
         flat_id = np.full((Q, L * blkp), _INVALID, dtype=np.int32)

@@ -17,6 +17,12 @@ and the plain version over it are held to the reference's Pallas kernel
 too, for m in {1, 6, 13, 23} and r*L not a multiple of the hashes a block
 takes.
 
+The fused probe (``probe_append``) and the distance-by-id epilogue
+(``l2_distance_by_id``) are compositions around the reference's
+``bucket_probe`` and ``l2_distance_gathered``: their plain versions are held
+to those kernels here, and to the reference's whole fused probe in
+``tests/test_torch_query.py``.
+
 CUDA cases (marker ``cuda``): each hand-written kernel vs its plain version
 on the card, by the same rules; they skip where no card is present.
 """
@@ -24,10 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_probe,
-                                 bucket_probe_ref, l2_distance, l2_distance_gathered,
+from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_probe_ref,
+                                 l2_distance, l2_distance_by_id, l2_distance_by_id_ref,
                                  l2_distance_gathered_ref, lsh_hash_all_radii,
-                                 lsh_hash_all_radii_ref, lsh_hash_ref)
+                                 lsh_hash_all_radii_ref, lsh_hash_ref, probe_append,
+                                 probe_append_ref)
 from repro_torch.kernels.lsh_hash import ops as hash_ops
 from repro_torch.kernels.lsh_hash.ops import hash_pack, index_hash_pack, packed_width
 from repro_torch.kernels.lsh_hash.ref import floor_margin, lsh_hash_packed_ref
@@ -291,7 +298,7 @@ def test_blockify_and_bucket_probe_match_reference(ref_kernels, block_objs, lane
     qfp = RNG.integers(0, 64, size=G).astype(np.int32)
     want = ref_kernels.bucket_probe(jnp.asarray(rows), jnp.asarray(qfp), ids_j, fps_j,
                                     interpret=True, use_pallas=True)
-    got = bucket_probe(*_t(rows, qfp), ids_b, fps_b)
+    got = bucket_probe_ref(*_t(rows, qfp), ids_b, fps_b)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -305,8 +312,109 @@ def test_l2_distance_gathered_ref_matches_pallas(ref_kernels, q, s, d):
     want = ref_kernels.l2_distance_gathered(
         jnp.asarray(qs), jnp.asarray(coords), jnp.asarray(xn2), jnp.asarray(qn2),
         interpret=True, force_pallas=True)
-    got = l2_distance_gathered(*_t(qs, coords, xn2, qn2))
+    got = l2_distance_gathered_ref(*_t(qs, coords, xn2, qn2))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("q,s,n,d", [(1, 8, 40, 8), (5, 17, 300, 24), (7, 61, 500, 100)])
+def test_l2_distance_by_id_ref_matches_pallas(ref_kernels, q, s, n, d):
+    """The distance epilogue by id == the reference's gathered kernel
+    (interpret mode) on the rows of the same ids, masked and clamped as the
+    reference's plans do; INVALID slots (a third of them) are +inf."""
+    import jax.numpy as jnp
+    qs = RNG.normal(size=(q, d)).astype(np.float32)
+    db = RNG.normal(size=(n, d)).astype(np.float32)
+    xn2 = (db.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    qn2 = (qs.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    ids = RNG.integers(0, n, size=(q, s)).astype(np.int32)
+    ids[RNG.uniform(size=(q, s)) < 1 / 3] = INVALID
+    valid = ids != INVALID
+    safe = np.where(valid, ids, 0)
+    d2 = ref_kernels.l2_distance_gathered(
+        jnp.asarray(qs), jnp.asarray(db[safe]), jnp.asarray(xn2[safe]), jnp.asarray(qn2),
+        interpret=True, force_pallas=True)
+    want = np.where(valid, np.maximum(np.asarray(d2), 0.0), np.inf)
+    got = l2_distance_by_id(*_t(qs, ids, db, xn2, qn2))
+    assert got.dtype == torch.float32 and got.shape == (q, s)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), ~valid)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    strided = torch.from_numpy(np.concatenate([ids, ids[:, :3]], axis=1))[:, :s]
+    assert torch.equal(l2_distance_by_id_ref(*_t(qs), strided, *_t(db, xn2, qn2)), got)
+
+
+def _probe_inputs(Q, L, C, block_objs, *, lane_pad=8, fp_range=4, device="cpu"):
+    """A blockified store of random buckets (sizes 0 .. C+1 chunks deep, so
+    chains end before, at and past the walk's depth) and, per (query, table),
+    one of its buckets with a query fingerprint: the probe's inputs.
+    Fingerprints in [0, fp_range) make matches frequent, so the S budget
+    runs out inside a step."""
+    n_buckets = 64
+    tcnt = RNG.integers(0, (C + 1) * block_objs + 2, size=n_buckets)
+    tcnt[:8] = 0
+    tcnt[8:12] = block_objs * np.arange(1, 5)  # chains ending on a chunk edge
+    toff = np.where(tcnt > 0, np.cumsum(tcnt) - tcnt, -1)
+    total = int(tcnt.sum())
+    eid = RNG.integers(0, 5000, size=total).astype(np.int32)
+    efp = RNG.integers(0, fp_range, size=total).astype(np.int32)
+    ids_b, fps_b, head_row, _ = blockify_entries(
+        *_t(eid, efp, toff, tcnt), block_objs, lane_pad=lane_pad)
+    pick = RNG.integers(0, n_buckets, size=(Q, L))
+    cnt = torch.from_numpy(tcnt[pick].astype(np.int32))
+    head = head_row[torch.from_numpy(pick)]
+    qfp = torch.from_numpy(RNG.integers(0, fp_range, size=(Q, L)).astype(np.int32))
+    active = torch.from_numpy(RNG.uniform(size=Q) < 0.8)
+    active[0] = True
+    return [x.to(device) for x in (cnt, head, qfp, active, ids_b, fps_b)]
+
+
+@pytest.mark.parametrize("Q,L,C,block_objs,S", [(6, 5, 1, 8, 8), (9, 12, 2, 16, 40),
+                                                (4, 40, 4, 8, 100), (3, 3, 3, 150, 12)])
+def test_probe_append_ref_matches_a_chain_walk(Q, L, C, block_objs, S):
+    """The plain fused probe (one gather of every step, a gate scan, one
+    append) == a walk that reads step by step while the count is below S,
+    as the oracle plan does: same buffer, count and blocks read, with S
+    reached inside a step, chains deeper and shallower than C, inactive
+    queries, L past one warp's 32 rows and rows wider than 128 slots."""
+    cnt, head, qfp, active, ids_b, fps_b = _probe_inputs(Q, L, C, block_objs)
+    sbuf = -(-S // 8) * 8 + 5
+    buf, count, blocks = probe_append(cnt, head, qfp, active, ids_b, fps_b,
+                                      block_objs=block_objs, max_chain=C, S=S, sbuf=sbuf)
+    want_buf = np.full((Q, sbuf), INVALID, np.int64)
+    want_count, want_blocks = np.zeros(Q, np.int64), np.zeros(Q, np.int64)
+    ids_n, fps_n = ids_b.numpy(), fps_b.numpy()
+    for q in range(Q):
+        n = 0
+        for c in range(C):
+            if not active[q] or n >= S:
+                break
+            for l in range(L):
+                if cnt[q, l] <= c * block_objs:
+                    continue
+                want_blocks[q] += 1
+                row = int(head[q, l]) + c
+                for e, f in zip(ids_n[row], fps_n[row]):
+                    if f == qfp[q, l] and e != INVALID:
+                        if n < S:
+                            want_buf[q, n] = e
+                        n += 1
+        want_count[q] = min(n, S)
+    np.testing.assert_array_equal(buf.numpy(), want_buf)
+    np.testing.assert_array_equal(count.numpy(), want_count)
+    np.testing.assert_array_equal(blocks.numpy(), want_blocks)
+    assert (want_count == S).any() and (want_count[~active.numpy()] == 0).all()
+
+
+def test_probe_append_and_l2_distance_by_id_refuse_bad_arguments():
+    cnt, head, qfp, active, ids_b, fps_b = _probe_inputs(2, 3, 2, 8)
+    kw = dict(block_objs=8, max_chain=2, S=8, sbuf=8)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        probe_append(cnt, head[:, :2], qfp, active, ids_b, fps_b, **kw)
+    for bad in (dict(max_chain=0), dict(block_objs=0), dict(S=9), dict(S=0)):
+        with pytest.raises(ValueError, match="need max_chain"):
+            probe_append(cnt, head, qfp, active, ids_b, fps_b, **dict(kw, **bad))
+    q, db = torch.zeros((2, 4)), torch.zeros((5, 4))
+    with pytest.raises(ValueError, match="shapes disagree"):
+        l2_distance_by_id(q, cnt, db[:, :3], torch.zeros(5), torch.zeros(2))
 
 
 def test_cpu_tensors_never_launch_a_kernel():
@@ -315,10 +423,10 @@ def test_cpu_tensors_never_launch_a_kernel():
     x = torch.zeros((3, 8))
     a, b, rm = _t(*_family(2, 2, 3, 8))
     lsh_hash_all_radii(x, a, b, rm, w=4.0, radii=(1.0, 2.0), u=10, fp_bits=8)
-    ids = torch.full((2, 8), INVALID, dtype=torch.int32)
-    bucket_probe(torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
-                 ids, ids)
-    l2_distance_gathered(x, x[:, None, :], torch.zeros(3, 1), torch.zeros(3))
+    cnt, head, qfp, active, ids_b, fps_b = _probe_inputs(3, 4, 2, 8)
+    buf, _, _ = probe_append(cnt, head, qfp, active, ids_b, fps_b, block_objs=8,
+                             max_chain=2, S=8, sbuf=8)
+    l2_distance_by_id(x, buf, torch.zeros((5000, 8)), torch.zeros(5000), torch.zeros(3))
     l2_distance(x, x)
     assert [k.launches for k in KERNELS] == before
 
@@ -354,29 +462,71 @@ def test_cuda_lsh_hash_refuses_m_past_the_block(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 16384, 16381])
-def test_cuda_bucket_probe_kernel_matches_plain(cuda, G):
-    eid, efp, toff, tcnt = _csr(4000)
-    toff, tcnt = np.array([0, 900, -1, 2500]), np.array([900, 1600, 0, 1500])
-    ids_b, fps_b, _, nb = blockify_entries(
-        *_t(eid, efp.astype(np.int32), toff, tcnt, device=cuda), 99, lane_pad=8)
-    rows, qfp = _t(RNG.integers(0, nb, size=G).astype(np.int32),
-                   RNG.integers(0, 64, size=G).astype(np.int32), device=cuda)
-    got = bucket_probe(rows, qfp, ids_b, fps_b)
+@pytest.mark.parametrize("Q,L,C,block_objs,S,sbuf,fp_range", [
+    (1, 32, 2, 99, 64, 64, 4),      # a lone query at the SIFT1M shape
+    (256, 32, 2, 99, 64, 64, 64),   # the batch, the budget reached in step 1 or never
+    (37, 7, 1, 8, 13, 21, 2),       # L < 32, sbuf not a multiple of 8
+    (19, 45, 4, 16, 100, 100, 8),   # L past a 32-row chunk, four steps
+    (11, 3, 3, 150, 30, 33, 2),     # rows of 152 slots: two 32-lane segments
+])
+def test_cuda_probe_append_kernel_matches_plain(cuda, Q, L, C, block_objs, S, sbuf,
+                                                fp_range):
+    """The fused probe kernel == its plain version, exactly: the buffer (S
+    reached inside a step, INVALID after), the counts and the blocks read,
+    inactive queries included."""
+    args = _probe_inputs(Q, L, C, block_objs, fp_range=fp_range, device=cuda)
+    kw = dict(block_objs=block_objs, max_chain=C, S=S, sbuf=sbuf)
+    launches = KERNELS[1].launches
+    got = probe_append(*args, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, bucket_probe_ref(rows, qfp, ids_b, fps_b),
-                               rtol=0, atol=0)
+    assert KERNELS[1].launches == launches + 1
+    want = probe_append_ref(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_append_refuses_what_the_kernel_cannot_take(cuda):
+    """L past the 4,096 tables a block stages, rows not made of 16 B vectors,
+    and strided [Q, L] inputs raise before a launch."""
+    cnt, head, qfp, active, ids_b, fps_b = _probe_inputs(2, 3, 2, 8, device=cuda)
+    kw = dict(block_objs=8, max_chain=2, S=8, sbuf=8)
+    wide = torch.zeros((2, 4097), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="L <= 4096"):
+        probe_append(wide, wide, wide, active, ids_b, fps_b, **kw)
+    with pytest.raises(ValueError, match="16 B vectors"):
+        probe_append(cnt, head, qfp, active, ids_b[:, :6].contiguous(),
+                     fps_b[:, :6].contiguous(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_append(cnt.t().contiguous().t(), head, qfp, active, ids_b, fps_b, **kw)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,s,d", [(1, 64, 128), (256, 64, 128), (7, 61, 128),
-                                   (5, 17, 24), (3, 9, 30)])
-def test_cuda_l2_distance_gathered_kernel_matches_plain(cuda, q, s, d):
-    qs, coords = _t(RNG.normal(size=(q, d)).astype(np.float32),
-                    RNG.normal(size=(q, s, d)).astype(np.float32), device=cuda)
-    xn2 = (coords * coords).sum(-1)
-    qn2 = (qs * qs).sum(-1)
-    got = l2_distance_gathered(qs, coords, xn2, qn2)
+                                   (5, 17, 100), (3, 9, 30), (4, 70, 960)])
+def test_cuda_l2_distance_by_id_kernel_matches_plain(cuda, q, s, d):
+    """The distance-by-id kernel == its plain version at 2e-4 (D = 128 one
+    float4 a lane, 100 ragged, 30 scalar, 960 GIST's eight chunks), +inf on
+    exactly the INVALID slots; a strided buffer (a column slice, as the
+    external plan passes) gives the same values, and each slot's value
+    depends on its (query, id) only: a lone query's row and a narrower
+    buffer agree bit for bit."""
+    n = 3000
+    qs, db = _t(RNG.normal(size=(q, d)).astype(np.float32),
+                RNG.normal(size=(n, d)).astype(np.float32), device=cuda)
+    ids = RNG.integers(0, n, size=(q, s + 3)).astype(np.int32)
+    ids[RNG.uniform(size=ids.shape) < 0.25] = INVALID
+    wide = torch.from_numpy(ids).to(cuda)
+    buf = wide[:, :s]
+    xn2, qn2 = (db * db).sum(-1), (qs * qs).sum(-1)
+    launches = KERNELS[2].launches
+    got = l2_distance_by_id(qs, buf, db, xn2, qn2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, l2_distance_gathered_ref(qs, coords, xn2, qn2),
-                               rtol=2e-4, atol=2e-4)
+    assert KERNELS[2].launches == launches + 1
+    want = l2_distance_by_id_ref(qs, buf, db, xn2, qn2)
+    assert torch.equal(torch.isinf(got), buf == INVALID)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(l2_distance_by_id(qs, buf.contiguous(), db, xn2, qn2), got)
+    lone = l2_distance_by_id(qs[-1:].contiguous(), buf[-1:, : s // 2 + 1].contiguous(),
+                             db, xn2, qn2[-1:].contiguous())
+    assert torch.equal(lone, got[-1:, : s // 2 + 1])

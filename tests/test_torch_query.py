@@ -6,6 +6,9 @@ reference on an index carried across by ``IndexArrays.from_numpy``.
   block_objs knobs, with masked rows inert and a lone query padded;
 * the port's probe stage fed the reference's query hashes == the reference's
   fused plan: exact on every integer field, distances allclose at 2e-4;
+  one radius of it, the plain fused probe and distance epilogue, == the
+  reference's ``_probe_radius_fused`` under several chain depths and
+  budgets, with inactive queries;
 * the io_count replay of the port's probe trace == its I/O counters.
 """
 import dataclasses
@@ -177,6 +180,56 @@ def test_probe_stage_with_reference_hashes_matches_reference(engine, built_index
         np.testing.assert_array_equal(_np(getattr(got, name)), _np(getattr(want, name)),
                                       err_msg=f"field {name} diverged")
     np.testing.assert_allclose(_np(got.dists), _np(want.dists), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("max_chain,s_cap,t", [(1, None, 0), (2, 8, 1), (4, 24, 2),
+                                               (2, None, 3)])
+def test_probe_append_ref_matches_reference_fused_probe(engine, built_index,
+                                                        clustered_data, max_chain, s_cap, t):
+    """One radius of the fused probe, fed the reference's bucket sizes, chain
+    heads and fingerprints: ``probe_append_ref`` == the reference's
+    ``_probe_radius_fused`` on the buffer, the count and the blocks read,
+    exactly; ``l2_distance_by_id_ref`` on that buffer == its distances at
+    2e-4. A third of the queries are inactive; at s_cap = 8 and 24 the
+    budget runs out inside a step."""
+    import jax.numpy as jnp
+    from repro.core import SearchEngine as RefEngine
+    from repro.core import query as rq
+    from repro.kernels.lsh_hash.ops import lsh_hash_all_radii as ref_hash
+    from repro_torch.kernels import l2_distance_by_id_ref, probe_append_ref
+
+    ref_engine = RefEngine(built_index.index)
+    rcfg = ref_engine.config(k=1, s_cap=s_cap, max_chain=max_chain)
+    rix = ref_engine.arrays(rcfg.block_objs)
+    cfg = engine.config(k=1, s_cap=s_cap, max_chain=max_chain)
+    ix = engine.arrays(cfg.block_objs)
+    assert (cfg.S, cfg.max_chain, cfg.block_objs) == (rcfg.S, rcfg.max_chain,
+                                                      rcfg.block_objs)
+    q = np.asarray(clustered_data["queries"])
+    active = np.arange(q.shape[0]) % 3 != 1
+    rq_q, rq_n2 = rq._prep_queries(jnp.asarray(q))
+    bk, qfp = ref_hash(rq_q, rix.a, rix.b, rix.rm, w=rcfg.w, radii=rcfg.radii, u=rcfg.u,
+                       fp_bits=rcfg.fp_bits)
+    flat = (np.arange(rcfg.L)[None, :] << rcfg.u) + np.asarray(bk[t])
+    cnt = np.asarray(rix.table_cnt[t]).reshape(-1)[flat]
+    head = np.asarray(rix.blocks_head[t]).reshape(-1)[flat]
+    want_buf, want_d2, want_st = rq._probe_radius_fused(
+        rix, rq_q, rq_n2, jnp.asarray(cnt), jnp.asarray(head), qfp[t], rcfg,
+        jnp.asarray(active))
+    buf, count, blocks = probe_append_ref(
+        *(torch.from_numpy(np.array(x)) for x in (cnt, head, qfp[t], active)),
+        ix.ids_blocks, ix.fps_blocks, block_objs=cfg.block_objs, max_chain=cfg.max_chain,
+        S=cfg.S, sbuf=np.asarray(want_buf).shape[1])
+    np.testing.assert_array_equal(_np(buf), np.asarray(want_buf))
+    np.testing.assert_array_equal(_np(count), np.asarray(want_st["cands"]))
+    np.testing.assert_array_equal(_np(blocks), np.asarray(want_st["nio_blocks"]))
+    assert (_np(count)[~active] == 0).all() and _np(blocks)[active].sum() > 0
+    if s_cap is not None:
+        assert (_np(count) == cfg.S).any()
+    queries, qnorm2 = tq._prep_queries(torch.from_numpy(q))
+    d2 = l2_distance_by_id_ref(queries, buf, ix.db, ix.db_norm2, qnorm2)
+    np.testing.assert_array_equal(np.isinf(_np(d2)), np.isinf(np.asarray(want_d2)))
+    np.testing.assert_allclose(_np(d2), np.asarray(want_d2), rtol=2e-4, atol=2e-4)
 
 
 def test_nio_replay_ties_out_with_counters(engine, built_index, clustered_data):

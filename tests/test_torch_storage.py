@@ -339,9 +339,9 @@ def test_measure_harness_runs_every_discipline(tmp_path):
 def test_cuda_external_plan_matches_fused(tmp_path):
     """On the card: external == fused bit for bit (both hash through the
     same lsh_hash launch), the store's reads equal the io_count replay, and
-    the external plan launches lsh_hash and l2_distance_gathered but never
-    bucket_probe (its chain walk is on the host). Port only: the card's
-    machine has no JAX."""
+    the external plan launches lsh_hash and the distance-by-id kernel but
+    never the probe kernel (its chain walk is on the host). Port only: the
+    card's machine has no JAX."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++")
     from repro_torch.core import E2LSHoS
