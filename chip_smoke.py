@@ -25,7 +25,19 @@ and holds each to the repo's own contracts:
      the mmap, aio and uring block stores, each cold (page cache dropped)
      then warm: every result field equal to the fused plan's, the store's
      reads equal to the io_count replay;
-  5. each kernel against its plain PyTorch version on the card at the
+  5. ``[serve]`` the serving front end on the same SIFT1M index: a ragged
+     stream of requests of 1-32 rows (the 256 queries 8 times over, in a
+     seeded order) through ``repro_torch.serving.BatchQueue`` (ladder 8, 32,
+     128; background tick loop) over ``plan="fused"``, every ticket equal
+     bit for bit to a direct dispatch of its rows; the same stream with half
+     its requests at priority 1 under a 5 ms deadline (every ticket equal to
+     its direct dispatch or shed with ``DeadlineExceeded``); and, from the
+     spill file, the stream over ``plan="external"`` on the aio store with
+     cache warming, its store reads equal to the served ``nio_blocks``, and
+     ``/metrics`` from a live ``MetricsServer``; then ``[serve_cli]``, the
+     ``python -m repro_torch.launch.serve --mode ann --queue`` entry point in
+     a subprocess on the card;
+  6. each kernel against its plain PyTorch version on the card at the
      paths' shapes plus ragged ones, with its median time, its plain
      version's and a library yardstick's: ``lsh_hash``, the fused probe
      (``probe_append``) and the distance epilogue by id
@@ -48,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA data sheet
@@ -62,6 +75,15 @@ GT_TOL = 1e-3               # exact scan vs float64 truth (fp32 expansion cancel
 BACKENDS = ("mmap", "aio", "uring")
 QD = 32                     # queue depth of the aio and uring block stores
 WATCHDOG_S = 1100           # the whole run's budget, builds included
+SERVE_REPEAT = 8            # the [serve] stream: the batch's queries, 8 times over
+SERVE_LADDER = (8, 32, 128)  # the ANN server's default ladder; max_batch 128
+SERVE_DEADLINE_MS = 5.0     # the QoS part's low-class deadline: tight, so some shed
+SERVE_LOOSE_MS = 1000.0     # and its high class's: loose, so each class has a hit rate
+SERVE_WARM_ROWS = 4096      # the external queue's cache-warming set
+SERVE_CACHE_ROWS = 2048     # its store's cache arena, under the warm set: the
+                            # idle warm pass must fetch on the prefetch lane
+FIELDS = ("ids", "dists", "found", "radii_searched", "nio_table", "nio_blocks",
+          "cands_checked")
 
 
 class SmokeFailure(RuntimeError):
@@ -279,8 +301,7 @@ def external_phase(torch, engine, params, path, hdr, queries, kernels):
     from repro_torch.core.io_count import nio_for_block_size
     from repro_torch.storage import drop_page_cache, load_external, page_cache_residency
 
-    fields = ("ids", "dists", "found", "radii_searched", "nio_table", "nio_blocks",
-              "cands_checked", "probe_sizes")
+    fields = FIELDS + ("probe_sizes",)
     want = engine.query(queries, plan="fused", k=K, collect_probe_sizes=True)
     torch.cuda.synchronize()
     Q = queries.shape[0]
@@ -350,6 +371,265 @@ def external_phase(torch, engine, params, path, hdr, queries, kernels):
           f"plan=external did not launch its kernels: {launches}")
     check(launches["bucket_probe"] == 0 and launches["l2_distance_dense"] == 0,
           f"plan=external launched a kernel off its path: {launches}")
+
+
+def serve_stream(queries_np):
+    """The [serve] request stream: the batch's queries SERVE_REPEAT times over
+    in a seeded order, cut into requests of 1-32 rows as the serve CLI cuts
+    them. Returns (order, requests): stream row i is query order[i]."""
+    import numpy as np
+    from repro_torch.launch.serve import _ragged_requests
+
+    order = np.random.default_rng(3).permutation(
+        np.tile(np.arange(queries_np.shape[0]), SERVE_REPEAT))
+    return order, _ragged_requests(queries_np[order], max_batch=SERVE_LADDER[-1], seed=0)
+
+
+def timed_direct(torch, fn, requests):
+    """Each request dispatched alone at its own size (the queue's parity and
+    throughput baseline): (results, seconds), each shape seen once first."""
+    for r in requests:
+        fn(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [fn(r) for r in requests]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def differing(got, want):
+    """{field: rows that differ} between a queued and a direct result."""
+    bad = {}
+    for name in FIELDS:
+        g, w = getattr(got, name).cpu(), getattr(want, name).cpu()
+        if g.shape != w.shape:
+            bad[name] = int(w.shape[0])
+            continue
+        same = (g == w) | (g.isnan() & w.isnan()) if g.is_floating_point() else g == w
+        rows = int((~same.reshape(g.shape[0], -1).all(dim=1)).sum())
+        if rows:
+            bad[name] = rows
+    return bad
+
+
+def parity_report(phase, pairs):
+    """Hold every (queued, direct) pair bit for bit; print what differed."""
+    fields, requests, rows = {}, 0, 0
+    for got, want in pairs:
+        bad = differing(got, want)
+        requests += bool(bad)
+        rows += max(bad.values(), default=0)
+        for name, n in bad.items():
+            fields[name] = fields.get(name, 0) + n
+    say(phase, parity="queued vs direct, bit for bit", compared=len(pairs),
+        requests_differing=requests, rows_differing=rows,
+        rows_differing_by_field=json.dumps(fields))
+    check(requests == 0, f"{phase}: {requests} queued requests differ from their direct "
+                         f"dispatch ({rows} rows; by field {fields})")
+
+
+def queue_line(phase, s, **kv):
+    say(phase, ticks=s["ticks"], dispatches=s["dispatches"], rows=s["rows_served"],
+        occupancy=f"{s['occupancy_mean']:.4f}", pad_waste=f"{s['pad_waste']:.4f}",
+        dispatch_p50_ms=f"{s['p50_dispatch_ms']:.4f}",
+        dispatch_p99_ms=f"{s['p99_dispatch_ms']:.4f}",
+        rung_hist=json.dumps(s["rung_hist"]), **kv)
+
+
+def serve_phase(torch, engine, queries_np, gt_dists, kernels):
+    """[serve]: the fused queue on the background loop, then the same stream
+    under QoS. Every ticket equals its rows' direct plan="fused" dispatch bit
+    for bit (or, under QoS, raises DeadlineExceeded); one dispatch per tick;
+    the path's kernels launched by the queue's thread; no kernel library
+    loaded after the warm-up."""
+    from repro_torch.core import overall_ratio
+    from repro_torch.kernels.build import CudaKernel
+    from repro_torch.serving import BatchQueue, DeadlineExceeded
+
+    order, requests = serve_stream(queries_np)
+    rows = sum(r.shape[0] for r in requests)
+    sizes = [r.shape[0] for r in requests]
+    say("serve", plan="fused", stream_rows=rows, requests=len(requests),
+        request_rows_min=min(sizes), request_rows_max=max(sizes),
+        ladder=json.dumps(SERVE_LADDER), tick_us=200, k=K)
+    for kern in kernels:
+        kern.launches = 0
+    # count kernel libraries loaded (and built if needed) from here on
+    real_load, loads = CudaKernel._load, []
+    CudaKernel._load = lambda kern: (loads.append(kern.name), real_load(kern))[1]
+    try:
+        t0 = time.perf_counter()
+        queue = BatchQueue(engine, plan="fused", k=K, ladder=SERVE_LADDER,
+                           max_batch=SERVE_LADDER[-1], tick_us=200.0)
+        warm_s = time.perf_counter() - t0
+        warm_loads = len(loads)
+        after_warm = {kern.name: kern.launches for kern in kernels}
+        t0 = time.perf_counter()
+        with queue:
+            tickets = [queue.submit(r) for r in requests]
+            results = [t.result(timeout=120) for t in tickets]
+        t_queued = time.perf_counter() - t0
+        stream_loads = loads[warm_loads:]
+    finally:
+        CudaKernel._load = real_load
+    launches = {kern.name: kern.launches for kern in kernels}
+    grew = {n: launches[n] - after_warm[n] for n in launches}
+    s = queue.stats_summary()
+    say("serve", plan="fused", warmup_s=f"{warm_s:.3f}", loads_in_warmup=warm_loads,
+        loads_after_warmup=len(stream_loads), launches=json.dumps(launches),
+        launches_in_stream=json.dumps(grew))
+    check(not stream_loads, f"kernel libraries loaded after the warm-up: {stream_loads}")
+    check(all(grew[n] > 0 for n in ("lsh_hash", "bucket_probe", "l2_distance")),
+          f"the fused queue did not launch its kernels: {grew}")
+    check(grew["l2_distance_dense"] == 0, "the fused queue launched the dense kernel")
+    check(s["dispatches"] == s["ticks"] == queue.dispatch_count,
+          f"dispatches {s['dispatches']} != ticks {s['ticks']}")
+    check(s["rows_served"] == rows, f"served {s['rows_served']} of {rows} rows")
+    _, direct_fn = engine.make_plan_fn(plan="fused", k=K)
+    direct, t_direct = timed_direct(torch, direct_fn, requests)
+    parity_report("serve", list(zip(results, direct)))
+    dists = torch.cat([r.dists for r in results]).numpy()
+    ratio = overall_ratio(dists, gt_dists[order][:, :K])
+    check(ratio < 1.5, f"queued overall ratio {ratio} is not an ANN result")
+    queue_line("serve", s, plan="fused", queued_qps=f"{rows / t_queued:.1f}",
+               direct_qps=f"{rows / t_direct:.1f}", queued_s=f"{t_queued:.4f}",
+               direct_s=f"{t_direct:.4f}", overall_ratio=f"{ratio:.4f}")
+
+    # QoS: half the requests at priority 1 under a tight deadline, the other
+    # half at priority 0 under a loose one, all submitted at once
+    queue.reset_stats()
+    for kern in kernels:
+        kern.launches = 0
+    outcomes, t0 = [], time.perf_counter()
+    with queue:
+        tickets = [queue.submit(r, priority=i % 2,
+                                deadline_ms=SERVE_DEADLINE_MS if i % 2 else SERVE_LOOSE_MS)
+                   for i, r in enumerate(requests)]
+        for t in tickets:
+            try:
+                outcomes.append(t.result(timeout=120))
+            except DeadlineExceeded:
+                outcomes.append(None)
+    t_qos = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    s = queue.stats_summary()
+    shed = sum(o is None for o in outcomes)
+    parity_report("serve", [(o, d) for o, d in zip(outcomes, direct) if o is not None])
+    qos = s["qos"]
+    by_class = {c: dict(tickets=v["tickets"], shed=v["shed"],
+                        hit_rate=v.get("hit_rate"),
+                        p99_latency_ms=round(v["p99_latency_ms"], 4))
+                for c, v in qos["by_class"].items()}
+    queue_line("serve", s, plan="fused", part="qos", deadline_ms=SERVE_DEADLINE_MS,
+               shed=shed, qos_shed=qos["shed"], tickets=len(tickets),
+               served_rows=s["rows_served"], queued_s=f"{t_qos:.4f}",
+               deadline_hit_rate=qos.get("deadline_hit_rate"),
+               by_class=json.dumps(by_class), launches=json.dumps(launches))
+    check(shed == qos["shed"], f"{shed} tickets raised DeadlineExceeded, the queue counts "
+                               f"{qos['shed']}")
+    check(shed > 0, f"no request was shed under a {SERVE_DEADLINE_MS} ms deadline")
+    check(all(launches[n] > 0 for n in ("lsh_hash", "bucket_probe", "l2_distance")),
+          f"the QoS part did not launch its kernels: {launches}")
+    check(s["dispatches"] == s["ticks"], "QoS: dispatches != ticks")
+
+
+def external_serve_phase(torch, dev, path, queries_np, kernels):
+    """[serve] over plan="external": the same stream from the spill file on
+    the aio store with cache warming. Every ticket equals its rows' direct
+    external dispatch bit for bit; the store's logical reads over the stream
+    equal the served nio_blocks; the idle loop warms the cache from the probe
+    trace; /metrics reports the queue's dispatches."""
+    from repro_torch.core import SearchEngine
+    from repro_torch.serving import BatchQueue
+    from repro_torch.storage import load_external
+    from repro_torch.telemetry import MetricsServer
+
+    _, requests = serve_stream(queries_np)
+    rows = sum(r.shape[0] for r in requests)
+    ext = load_external(path, backend="aio", qd=QD, cache_rows=SERVE_CACHE_ROWS, device=dev)
+    try:
+        engine = SearchEngine(ext)
+        for kern in kernels:
+            kern.launches = 0
+        queue = BatchQueue(engine, k=K, ladder=SERVE_LADDER, max_batch=SERVE_LADDER[-1],
+                           tick_us=200.0, warm_cache_rows=SERVE_WARM_ROWS)
+        check(queue.plan == "external" and ext.collect_row_hist,
+              "the external queue does not collect the probe trace")
+        warms, real_warm = [], queue.warm_cache
+
+        def logged_warm(top=None):
+            at, p0 = queue.dispatch_count, ext.store.stats.prefetch_reads
+            n = real_warm(top)
+            warms.append(dict(at=at, rows=n, prefetched=ext.store.stats.prefetch_reads - p0))
+            return n
+
+        queue.warm_cache = logged_warm
+        base = ext.store.stats.snapshot()        # after the warm-up
+        with MetricsServer(0) as server:
+            t0 = time.perf_counter()
+            with queue:
+                tickets = [queue.submit(r) for r in requests]
+                results = [t.result(timeout=300) for t in tickets]
+                t_queued = time.perf_counter() - t0
+                io = ext.store.stats.since(base)
+                last = queue.dispatch_count
+                deadline = time.perf_counter() + 30
+                while (not any(w["at"] == last for w in warms)
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.01)             # the idle interval
+            with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+                body = r.read().decode()
+        launches = {kern.name: kern.launches for kern in kernels}
+        nio = sum(int(r.nio_blocks.sum()) for r in results)
+        idle = [w for w in warms if w["at"] == last]
+        hot = ext.hot_rows()
+        scraped = [line for line in body.splitlines()
+                   if line.startswith('e2lsh_serve_dispatches_total{plan="external"}')]
+        s = queue.stats_summary()
+        say("serve", plan="external", backend=ext.store.name, qd=QD,
+            cache_rows=SERVE_CACHE_ROWS, warm_cache_rows=SERVE_WARM_ROWS,
+            launches=json.dumps(launches), store_reads=io.reads, nio_blocks=nio,
+            reads_equal_nio=io.reads == nio, device_reads=io.device_reads,
+            cache_hit_rate=f"{io.hit_rate:.4f}", prefetch_reads=io.prefetch_reads,
+            idle_warm=json.dumps(idle[-1] if idle else None), warms=len(warms),
+            hot_rows=int(hot.size), metrics_line=json.dumps(scraped))
+        check(all(launches[n] > 0 for n in ("lsh_hash", "l2_distance")),
+              f"the external queue did not launch its kernels: {launches}")
+        check(launches["bucket_probe"] == 0 and launches["l2_distance_dense"] == 0,
+              f"the external queue launched a kernel off its path: {launches}")
+        check(s["dispatches"] == s["ticks"] == queue.dispatch_count,
+              "external: dispatches != ticks")
+        check(io.reads == nio, f"store reads {io.reads} != served nio_blocks {nio}")
+        check(idle and idle[-1]["rows"] > 0 and idle[-1]["prefetched"] > 0,
+              f"the idle loop did not warm the cache: {warms[-3:]}")
+        check(hot.size > 0, "no probe trace was recorded")
+        check(len(scraped) == 1 and float(scraped[0].rsplit(" ", 1)[1]) == queue.dispatch_count,
+              f"/metrics dispatches {scraped} != the queue's {queue.dispatch_count}")
+        _, direct_fn = engine.make_plan_fn(plan="external", k=K)
+        direct, t_direct = timed_direct(torch, direct_fn, requests)
+        parity_report("serve", list(zip(results, direct)))
+        queue_line("serve", s, plan="external", queued_qps=f"{rows / t_queued:.1f}",
+                   direct_qps=f"{rows / t_direct:.1f}", queued_s=f"{t_queued:.4f}",
+                   direct_s=f"{t_direct:.4f}")
+    finally:
+        ext.close()
+
+
+def serve_cli_phase():
+    """[serve_cli]: the ANN entry point as a user runs it, on the card."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "ann", "--n", "20000",
+           "--queries", "256", "--k", "10", "--queue"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = [line for line in out.stdout.splitlines() if line.startswith("[queue]")]
+    say("serve_cli", cmd=json.dumps(" ".join(cmd[1:])), rc=out.returncode,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    for line in lines:
+        print(f"[serve_cli] {line}", flush=True)
+    check(out.returncode == 0, f"the serve CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    check(len(lines) == 3 and "dispatches" in lines[0] and "p99" in lines[1]
+          and "queued vs" in lines[2], f"the serve CLI printed no [queue] report: {out.stdout}")
 
 
 def hash_bound_ms(n, d, r, L, m):
@@ -691,6 +971,11 @@ def main(argv=None) -> int:
           f"{int((agree & ~matched).sum())} rows with agreeing hashes differ from the oracle")
     say("main", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
+    # ---- [serve]: the serving front end over the fused plan -----------------
+    t_phase = time.perf_counter()
+    serve_phase(torch, engine, ds.queries, ds.gt_dists, KERNELS)
+    say("serve", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
     # ---- [exact]: the exact k-NN baseline's path ----------------------------
     t_phase = time.perf_counter()
     exact_launches = exact_phase(torch, ix, queries, ds, res, KERNELS)
@@ -719,6 +1004,9 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         external_phase(torch, sp_engine, sp_idx.params, path, hdr, queries, KERNELS)
         say("external", seconds=f"{time.perf_counter() - t_phase:.3f}")
+        t_phase = time.perf_counter()
+        external_serve_phase(torch, dev, path, ds.queries, KERNELS)
+        say("serve", plan="external", seconds=f"{time.perf_counter() - t_phase:.3f}")
     finally:
         path.unlink(missing_ok=True)
     del sp_idx, sp_engine
@@ -770,6 +1058,11 @@ def main(argv=None) -> int:
                        launches=exact_launches["l2_distance_dense"], max_abs_err=worst,
                        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
     say("kernels", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # ---- [serve_cli]: the ANN entry point in a process of its own -----------
+    t_phase = time.perf_counter()
+    serve_cli_phase()
+    say("serve_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

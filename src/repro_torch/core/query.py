@@ -150,6 +150,40 @@ class QueryResult:
         same_id = self.ids.cpu().numpy() == other.ids.cpu().numpy()
         return ok & close.all(axis=1) & (same_id | close).all(axis=1)
 
+    def cpu(self) -> "QueryResult":
+        """The whole result on the host in ONE device-to-host copy (a serving
+        tick pays one sync, not one per field)."""
+        if self.ids.device.type == "cpu":
+            return self
+        return self._unpacked(self._packed().cpu())
+
+    def _packed(self) -> torch.Tensor:
+        """Every field side by side, bit for bit, in one int32 [Q, cols]
+        tensor on the result's device: ``dists`` as its float32 bit pattern,
+        ``found`` as 0/1, ``probe_sizes`` flattened per row."""
+        cols = []
+        for f in dataclasses.fields(QueryResult):
+            v = getattr(self, f.name)
+            if v is not None:
+                v = v.view(torch.int32) if v.dtype == torch.float32 else v.to(torch.int32)
+                cols.append(v.reshape(v.shape[0], -1))
+        return torch.cat(cols, dim=1)
+
+    def _unpacked(self, packed: torch.Tensor) -> "QueryResult":
+        """``_packed``'s inverse, shaped and typed after this result."""
+        out, lo = {}, 0
+        for f in dataclasses.fields(QueryResult):
+            v = getattr(self, f.name)
+            if v is None:
+                out[f.name] = None
+                continue
+            width = v[0].numel() if v.dim() > 1 else 1
+            part = packed[:, lo:lo + width].reshape(v.shape)
+            lo += width
+            out[f.name] = (part.view(torch.float32) if v.dtype == torch.float32
+                           else part.to(v.dtype))
+        return QueryResult(**out)
+
     @staticmethod
     def concat_rows(parts: "list[QueryResult]") -> "QueryResult":
         """Stitch row slices back into one result, on the host."""

@@ -8,7 +8,9 @@ every shared header (``csrc/*.cuh``) and of the flags, so an edited source or
 header is rebuilt and a stale library is never loaded; headers are never
 build targets themselves. Every C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; :class:`CudaKernel` raises when
-that is not 0 and counts the launches that went through.
+that is not 0 and counts the launches that went through. Loading and counting
+are thread-safe: a serving thread and its caller may reach a kernel first at
+the same time, and one ``nvcc`` build and one ``dlopen`` serve both.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 __all__ = ["CudaKernel", "build_all", "kernel_names", "library_path", "BUILD_DIR",
@@ -95,6 +98,11 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
+# serializes first loads: the build directory and the libraries are shared
+# by every kernel object of the process
+_LOAD_LOCK = threading.Lock()
+
+
 class CudaKernel:
     """One C entry point of one kernel library, loaded on first call.
 
@@ -108,6 +116,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._lib = None
+        self._count_lock = threading.Lock()
 
     def _load(self):
         build_all([self.name])
@@ -118,14 +127,17 @@ class CudaKernel:
         err = self._lib.kernel_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fn = fn
+        self._fn = fn               # set last: a reader outside the lock sees it whole
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            self._load()
+            with _LOAD_LOCK:
+                if self._fn is None:
+                    self._load()
         status = self._fn(*args)
         if status != 0:
             msg = self._lib.kernel_error_string(status).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{status} ({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -153,6 +153,10 @@ class ExternalIndex:
     # device fold runs (Eq. 7 overlap). 1 = chain heads only; deeper values
     # keep an async backend's queue full across the rung boundary.
     prefetch_depth: int = 1
+    # probe-trace row histogram (block row -> times walked), accumulated by
+    # external_plan when enabled — the serving queue's cache-warming signal
+    collect_row_hist: bool = False
+    row_hist: Optional[dict] = None
 
     def __post_init__(self):
         self._retired = False
@@ -165,6 +169,36 @@ class ExternalIndex:
     @property
     def device(self) -> torch.device:
         return self.db.device
+
+    def record_probe_rows(self, rows) -> None:
+        """Fold one chain step's block rows into the probe-trace histogram."""
+        if self.row_hist is None:
+            self.row_hist = {}
+        h = self.row_hist
+        uniq, counts = np.unique(np.asarray(rows, np.int64).ravel(),
+                                 return_counts=True)
+        for g, c in zip(uniq.tolist(), counts.tolist()):
+            h[g] = h.get(g, 0) + c
+
+    def hot_rows(self, top: Optional[int] = None) -> np.ndarray:
+        """The most-walked block rows, hottest first (empty until a plan ran
+        with ``collect_row_hist``); ties keep the order rows were first walked."""
+        if not self.row_hist:
+            return np.zeros((0,), dtype=np.int64)
+        rows = sorted(self.row_hist, key=self.row_hist.get, reverse=True)
+        if top is not None:
+            rows = rows[:int(top)]
+        return np.asarray(rows, dtype=np.int64)
+
+    def warm_cache(self, top: Optional[int] = 1024) -> int:
+        """Prefetch the hottest probe-trace rows into the store's cache
+        arena (each shard's own arena when the store is striped). Advisory:
+        prefetch never touches the logical ``reads`` ledger. Returns the
+        number of rows pushed."""
+        rows = self.hot_rows(top)
+        if rows.size:
+            self.store.prefetch(rows)
+        return int(rows.size)
 
     def close(self) -> None:
         self.store.close()
@@ -367,13 +401,14 @@ def _append_candidates_np(buf_id, count, flat_id, flat_ok, S):
 
 
 def _walk_rung_host(store: BlockStore, cnt, head, qfp, active_q,
-                    cfg: QueryConfig, blkp: int, sbuf: int):
+                    cfg: QueryConfig, blkp: int, sbuf: int, record=None):
     """One rung's chain walk. Fetches are batched per chain step (every
     still-active bucket's step-j row in ONE read_rows call — the deep queue
     the aio backend fans out), gated by the S budget exactly like the
     oracle: a chunk is read iff the bucket still has entries at this depth
-    AND the query's candidate count entering the step is below S. Returns
-    (buf_id, count, blocks_read, nonempty)."""
+    AND the query's candidate count entering the step is below S.
+    ``record(rows)``, when given, sees each step's block rows before they are
+    read (the probe trace). Returns (buf_id, count, blocks_read, nonempty)."""
     Q, L = cnt.shape
     BLK, S = cfg.block_objs, cfg.S
     nonempty = (cnt > 0) & active_q[:, None]
@@ -387,6 +422,8 @@ def _walk_rung_host(store: BlockStore, cnt, head, qfp, active_q,
             break
         qi, li = np.nonzero(active)
         step_rows = head[qi, li] + step
+        if record is not None:
+            record(step_rows)
         ids_rows, fps_rows = store.read_rows(step_rows)
         blocks_read += active.sum(axis=1, dtype=np.int32)
         # fingerprint filter (padding slots hold fp=-1 / id=INVALID, so the
@@ -453,7 +490,8 @@ def external_probe_stage(ext: "ExternalIndex", queries, qnorm2, cnt_np, head_np,
             t0 = time.perf_counter()
             buf_id, count, blocks_read, nonempty = _walk_rung_host(
                 ext.store, cnt_np[t], head_np[t], qfp_np[t], active_q, cfg,
-                ext.blkp, sbuf)
+                ext.blkp, sbuf,
+                record=ext.record_probe_rows if ext.collect_row_hist else None)
             t1 = time.perf_counter()
             # launch the fold (returns at once) ...
             with tracer.span("external.fold_dispatch", t=t):

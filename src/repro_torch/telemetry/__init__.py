@@ -1,23 +1,30 @@
-"""Telemetry for the query and storage stack: the part the storage tier
-records into.
+"""Telemetry for the query, storage and serving stack.
 
 * :mod:`registry` — process-wide metrics (counters, gauges, histograms with
-  labels). The block stores and the external plan register *collectors*
-  over their own ledgers, so ``snapshot()`` reads ``StoreStats`` and the
-  external plan's rung totals through one surface.
+  labels). The block stores, the external plan and the serving queue
+  register *collectors* over their own ledgers, so ``snapshot()`` reads
+  ``StoreStats``, the external plan's rung totals and the queue's
+  ``TickStats`` and QoS log through one surface.
 * :mod:`trace` — a span tracer with per-tree sampling, a hard
   ``REPRO_TELEMETRY=off`` switch and a bounded ring buffer. With
   ``enable(record_function=True)`` every recorded span also opens a
   ``torch.profiler.record_function`` range.
+* :mod:`export` / :mod:`http` — Perfetto/chrome-trace and JSONL span
+  exporters, Prometheus text rendering, and the live ``/metrics`` +
+  ``/trace?last=N`` + ``/snapshot`` server (``serve.py --metrics-port``).
 
 Quickstart::
 
     from repro_torch import telemetry
     telemetry.enable(sampling=1.0)          # tracing on (off by default)
     ... run queries ...
-    spans = telemetry.get_tracer().spans()
+    telemetry.export_chrome_trace("trace.json")   # -> ui.perfetto.dev
     snap = telemetry.snapshot()             # every counter, one dict
+    print(telemetry.render_prometheus(snap))
 """
+from .export import (export_chrome_trace, export_jsonl, render_prometheus,
+                     spans_to_chrome)
+from .http import MetricsServer
 from .registry import (Counter, DEFAULT_BUCKETS, Gauge, Histogram, Registry,
                        get_registry)
 from .trace import (NOOP_SPAN, Span, TELEMETRY_ENV, Tracer, get_tracer, span,
@@ -26,8 +33,9 @@ from .trace import (NOOP_SPAN, Span, TELEMETRY_ENV, Tracer, get_tracer, span,
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "DEFAULT_BUCKETS",
     "get_registry", "Span", "Tracer", "get_tracer", "span", "NOOP_SPAN",
-    "TELEMETRY_ENV", "telemetry_forced_off", "snapshot", "reset", "enable",
-    "disable",
+    "TELEMETRY_ENV", "telemetry_forced_off", "MetricsServer",
+    "export_chrome_trace", "export_jsonl", "render_prometheus",
+    "spans_to_chrome", "snapshot", "reset", "enable", "disable",
 ]
 
 

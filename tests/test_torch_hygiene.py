@@ -19,6 +19,7 @@ import sys
 import numpy as np
 from repro_torch.core import E2LSHoS, SearchEngine
 import repro_torch.baselines, repro_torch.storage, repro_torch.telemetry
+import repro_torch.serving, repro_torch.launch.serve, repro_torch.telemetry.http
 rng = np.random.default_rng(0)
 db = rng.normal(size=(500, 8)).astype(np.float32)
 idx = E2LSHoS.build(db, gamma=0.7, max_L=4, device="cpu")
@@ -87,3 +88,24 @@ def test_storage_and_exact_entry_points_default_to_cuda(tmp_path):
                  lambda: exact_knn(db, db[:3], k=2)):
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             call()
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    """The queue over a default-device engine and the serve CLI without
+    ``--device`` run on the card; without one they raise before doing any
+    work on the host."""
+    from repro_torch.core import E2LSHoS
+    from repro_torch.launch import serve
+    from repro_torch.serving import BatchQueue
+
+    if torch.cuda.is_available():
+        return
+    db = np.random.default_rng(3).normal(size=(300, 4)).astype(np.float32)
+    idx = E2LSHoS.build(db, max_L=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        BatchQueue(idx, ladder=(4,))
+    made = []
+    monkeypatch.setattr(serve, "make_dataset", lambda *a, **k: made.append(a))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        serve.main(["--mode", "ann", "--n", "300", "--queries", "4", "--queue"])
+    assert not made

@@ -1,0 +1,73 @@
+"""The port's ANN entry point, ``python -m repro_torch.launch.serve``, on the
+CPU: the queue's report lines, in memory and from a spill, and the modes the
+port does not serve yet."""
+import re
+
+import numpy as np
+import pytest
+
+from repro_torch.launch import serve
+
+_ARGS = ["--mode", "ann", "--device", "cpu", "--n", "2000", "--queries", "32"]
+
+
+def _queue_lines(out: str) -> list:
+    return [line for line in out.splitlines() if line.startswith("[queue]")]
+
+
+def test_queue_report_in_memory(capsys):
+    serve.main(_ARGS + ["--queue"])
+    lines = _queue_lines(capsys.readouterr().out)
+    assert len(lines) == 3, lines
+    m = re.match(r"\[queue\] (\d+) requests / 32 rows in (\d+) ticks \((\d+) dispatches\)",
+                 lines[0])
+    assert m and m.group(2) == m.group(3), lines[0]
+    assert "occupancy" in lines[0] and "pad waste" in lines[0]
+    assert "dispatch p50" in lines[1] and "p99" in lines[1]
+    ratio = float(re.search(r"ratio=([0-9.]+)", lines[1]).group(1))
+    assert 1.0 <= ratio < 1.5
+    assert re.search(r"qps \d+ queued vs \d+ direct", lines[2])
+
+
+def test_queue_report_from_a_spill_with_deadlines_and_metrics(capsys):
+    serve.main(_ARGS + ["--queue", "--store", "mem", "--deadline-ms", "60000",
+                        "--metrics-port", "0", "--trace-sampling", "0"])
+    out = capsys.readouterr().out
+    lines = _queue_lines(out)
+    assert len(lines) == 4, lines
+    assert re.search(r"qos: deadline 60000ms, hit rate 1\.000, shed 0/\d+ tickets", lines[2])
+    assert "[external] store backend=mem" in out
+    reads = re.search(r"\[external\] store: (\d+) block reads", out)
+    assert reads and int(reads.group(1)) > 0
+    assert "[telemetry] live at http://127.0.0.1:" in out
+
+
+def test_single_batch_and_external_reports(capsys):
+    serve.main(_ARGS + ["--k", "3"])
+    out = capsys.readouterr().out
+    assert re.search(r"\[single/fused\] ratio=[0-9.]+ nio/query=\d+", out), out
+    serve.main(_ARGS + ["--k", "3", "--store", "aio", "--qd", "4"])
+    out = capsys.readouterr().out
+    assert "counters agree: True" in out, out
+    assert re.search(r"\[external/aio\]   rung 0: \d+ active", out), out
+
+
+def test_sharded_spill_queue_report(capsys, tmp_path):
+    serve.main(_ARGS + ["--queue", "--store", "aio", "--qd", "4", "--shards", "2",
+                        "--spill", str(tmp_path / "sharded")])
+    out = capsys.readouterr().out
+    assert "2 shard stripes" in out and "shards=2" in out
+    assert len(re.findall(r"\[external\]   shard \d: \d+ reads", out)) == 2
+    assert len(_queue_lines(out)) == 3
+
+
+def test_lm_mode_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        serve.main(["--mode", "lm"])
+
+
+def test_ragged_requests_cover_the_stream_in_order():
+    qs = np.arange(300, dtype=np.float32).reshape(100, 3)
+    reqs = serve._ragged_requests(qs, max_batch=128, seed=0)
+    assert all(1 <= r.shape[0] <= 32 for r in reqs)
+    np.testing.assert_array_equal(np.concatenate(reqs), qs)
