@@ -43,6 +43,19 @@ and holds each to the repo's own contracts:
      (``probe_append``) and the distance epilogue by id
      (``l2_distance_by_id``) at radius 0 of the batch, the dense
      ``l2_distance`` at one block of the exact scan.
+  7. with the main index dropped: ``[sharded]`` the database in 4 range
+     shards on the card (``repro_torch.core.distributed``, the ANN server's
+     build defaults), queried through ``plan="sharded"`` (the fused body per
+     shard, merged): launch counts, p50, qps, the ratio against the exact
+     scan, ``nio_blocks`` and ``cands_checked``; held to the per-shard
+     oracle on every row whose kernel hashes equal the plain hashes, and
+     through the BatchQueue (the ``[serve]`` stream) to its direct dispatch
+     bit for bit; its ``to_global()`` held leaf for leaf to a direct build
+     of the whole database under the same family; ``[srs]`` SRS (m = 8,
+     T' = 400, the paper harness's SIFT setting) at k = 1 and 10, its
+     distances on ``l2_distance_by_id``, its index bytes beside E2LSH's,
+     held on 32 queries to the host run; and ``[qalsh]`` QALSH (K = 64) on
+     16 queries at k = 1, held to the host run.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -84,6 +97,13 @@ SERVE_CACHE_ROWS = 2048     # its store's cache arena, under the warm set: the
                             # idle warm pass must fetch on the prefetch lane
 FIELDS = ("ids", "dists", "found", "radii_searched", "nio_table", "nio_blocks",
           "cands_checked")
+SHARDS = 4                  # [sharded]: range shards of the database on the one card
+SRS_M = 8                   # [srs]: SRS's projected dimensions
+SRS_TPRIME = 400            # and its T' for SIFT, the paper harness's setting
+SRS_PARITY_Q = 32           # queries held to the same SRS run on the host
+QALSH_K = 64                # [qalsh]: lines, the paper harness's setting
+QALSH_Q = 16                # queries (the harness times QALSH on 16: it is slow)
+QUERY_KERNELS = ("lsh_hash", "bucket_probe", "l2_distance")
 
 
 class SmokeFailure(RuntimeError):
@@ -238,7 +258,7 @@ def exact_phase(torch, ix, queries, ds, res, kernels):
         fused_ratio_vs_float64=f"{overall_ratio(fused, ds.gt_dists[:, :K]):.6f}",
         fused_ratio_vs_exact_knn=f"{overall_ratio(fused, dists):.6f}")
     check(ok, f"exact_knn distances differ from the float64 truth beyond {GT_TOL}")
-    return launches
+    return launches, dists
 
 
 def spill_phase(torch, idx, path):
@@ -615,6 +635,242 @@ def external_serve_phase(torch, dev, path, queries_np, kernels):
         ext.close()
 
 
+def timed_runs(torch, fn, repeats=REPEATS):
+    """One warm-up call, then ``repeats`` timed calls, each ending in a
+    device synchronize: (last result, seconds per call)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def sharded_phase(torch, dev, ds, queries, exact_dists, kernels):
+    """[sharded]: the database in SHARDS range shards on the one card, each
+    with its own sub-index under one family, queried through
+    ``SearchEngine(sharded).query(plan="sharded")`` (the fused body per
+    shard, merged). Held to the sharded oracle on every row whose kernel
+    hashes equal the plain hashes, and through the BatchQueue to its direct
+    dispatch, bit for bit. Returns the kernels' launches on the batch path
+    and on the queue's stream."""
+    from repro_torch.core import HashFamily, SearchEngine, build_index, overall_ratio
+    from repro_torch.core.distributed import build_sharded_index
+    from repro_torch.kernels import lsh_hash_all_radii, lsh_hash_all_radii_ref
+    from repro_torch.serving import BatchQueue
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sh = build_sharded_index(ds.db, SHARDS, gamma=0.8, max_L=32, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    p = sh.params
+    cap = max(4 * K, -(-p.S // SHARDS))
+    say("sharded", shards=SHARDS, m=p.m, L=p.L, r=p.r, u=p.u, S=p.S, s_cap_per_shard=cap,
+        block_objs=p.block_objs, build_s=f"{build_s:.3f}", device_bytes=sh.nbytes(),
+        build_peak_bytes=torch.cuda.max_memory_allocated(),
+        device_allocated_bytes=torch.cuda.memory_allocated())
+    for s, ix in enumerate(sh.arrays):
+        say("sharded", shard=s, offset=sh.shard_offsets[s], n=ix.db.shape[0],
+            entries=ix.entries_id.shape[0], block_rows=ix.ids_blocks.shape[0],
+            device_bytes=ix.nbytes())
+    engine = SearchEngine(sh, device=dev)
+    for kern in kernels:
+        kern.launches = 0
+    res, times = timed_runs(torch, lambda: engine.query(queries, plan="sharded", k=K))
+    launches = {kern.name: kern.launches for kern in kernels}
+    Q = queries.shape[0]
+    ratio = overall_ratio(res.dists.cpu().numpy(), exact_dists)
+    say("sharded", batch=Q, k=K, launches=json.dumps(launches),
+        p50_ms=f"{statistics.median(times) * 1e3:.3f}",
+        qps=f"{Q * len(times) / sum(times):.1f}", overall_ratio_vs_exact=f"{ratio:.4f}",
+        found=f"{float(res.found.float().mean()):.4f}",
+        nio_blocks_mean=f"{float(res.nio_blocks.float().mean()):.2f}",
+        nio_mean=f"{float(res.nio.float().mean()):.2f}",
+        cands_checked_mean=f"{float(res.cands_checked.float().mean()):.2f}",
+        radii_mean=f"{float(res.radii_searched.float().mean()):.3f}")
+    check(all(launches[n] > 0 for n in QUERY_KERNELS),
+          f"a kernel of the sharded plan never launched: {launches}")
+    check(launches["lsh_hash"] == SHARDS * (REPEATS + 1),
+          f"the sharded plan hashed {launches['lsh_hash']} times, not once a shard a batch")
+    check(launches["l2_distance_dense"] == 0, "the sharded plan launched the dense kernel")
+    check(res.ids.shape == (Q, K) and bool(torch.isfinite(res.dists[res.found]).all()),
+          "sharded results malformed")
+    check(ratio < 1.5, f"sharded overall ratio {ratio} is not an ANN result")
+    profile_batches(torch, lambda: engine.query(queries, plan="sharded", k=K),
+                    statistics.median(times), plan="sharded")
+
+    # per-shard oracle bodies through the same merge
+    ix0 = sh.arrays[0]
+    hkw = dict(w=p.w, radii=p.radii, u=p.u, fp_bits=p.fp_bits)
+    bk, fp = lsh_hash_all_radii(queries, ix0.a, ix0.b, ix0.rm, **hkw)
+    bk_p, fp_p = lsh_hash_all_radii_ref(queries, ix0.a, ix0.b, ix0.rm, **hkw)
+    agree = ((bk == bk_p) & (fp == fp_p)).all(dim=2).all(dim=0).cpu().numpy()
+    t0 = time.perf_counter()
+    oracle = engine.query(queries, plan="oracle", k=K)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    matched = res.rows_agree(oracle, tol=TOL) & agree
+    swaps = int(((res.ids != oracle.ids).any(dim=1).cpu().numpy() & matched).sum())
+    say("sharded", oracle_rows=Q, hashes_agree=int(agree.sum()), match=int(matched.sum()),
+        tie_swaps=swaps, remaining_rows=int((~agree).sum()), oracle_s=f"{oracle_s:.3f}")
+    check(bool((matched == agree).all()),
+          f"{int((agree & ~matched).sum())} sharded rows with agreeing hashes differ from "
+          "the sharded oracle")
+
+    # the serving queue over the sharded plan
+    order, requests = serve_stream(ds.queries)
+    rows = sum(r.shape[0] for r in requests)
+    queue = BatchQueue(engine, plan="sharded", k=K, ladder=SERVE_LADDER,
+                       max_batch=SERVE_LADDER[-1], tick_us=200.0)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with queue:
+        tickets = [queue.submit(r) for r in requests]
+        results = [t.result(timeout=120) for t in tickets]
+    t_queued = time.perf_counter() - t0
+    queue_launches = {kern.name: kern.launches for kern in kernels}
+    s = queue.stats_summary()
+    check(all(queue_launches[n] > 0 for n in QUERY_KERNELS),
+          f"the sharded queue did not launch its kernels: {queue_launches}")
+    check(s["dispatches"] == s["ticks"] == queue.dispatch_count,
+          f"sharded queue: dispatches {s['dispatches']} != ticks {s['ticks']}")
+    check(s["rows_served"] == rows, f"sharded queue served {s['rows_served']} of {rows} rows")
+    _, direct_fn = engine.make_plan_fn(plan="sharded", k=K)
+    direct, t_direct = timed_direct(torch, direct_fn, requests)
+    parity_report("sharded", list(zip(results, direct)))
+    q_ratio = overall_ratio(torch.cat([r.dists for r in results]).numpy(),
+                            exact_dists[order])
+    queue_line("sharded", s, plan="sharded", launches=json.dumps(queue_launches),
+               queued_qps=f"{rows / t_queued:.1f}", direct_qps=f"{rows / t_direct:.1f}",
+               overall_ratio=f"{q_ratio:.4f}")
+
+    # the global index the shards partition, against a direct build of the
+    # whole database under the same family (the sharded index freed first)
+    t0 = time.perf_counter()
+    glob = sh.to_global()
+    torch.cuda.synchronize()
+    to_global_s = time.perf_counter() - t0
+    family = HashFamily(a=glob.a, b=glob.b, rm=glob.rm, w=p.w, u=p.u, fp_bits=p.fp_bits)
+    del engine, queue, direct_fn, sh, direct, results, res, oracle
+    torch.cuda.empty_cache()
+    direct_ix = build_index(ds.db, p, family=family, device=dev).arrays
+    same = [f for f in direct_ix.array_fields()
+            if torch.equal(getattr(glob, f), getattr(direct_ix, f))]
+    say("sharded", to_global_s=f"{to_global_s:.3f}", global_block_rows=glob.ids_blocks.shape[0],
+        global_entries=glob.entries_id.shape[0], leaves_equal_to_direct_build=len(same),
+        leaves=len(direct_ix.array_fields()))
+    check(len(same) == len(direct_ix.array_fields()),
+          f"to_global() differs from a direct build in "
+          f"{sorted(set(direct_ix.array_fields()) - set(same))}")
+    return launches, queue_launches
+
+
+def srs_phase(torch, dev, ds, queries, exact_dists, e2lsh_bytes, kernels):
+    """[srs]: SRS (m = SRS_M, T' = SRS_TPRIME) over the whole database on the
+    card at k = 1 and K, its T' true distances through ``l2_distance_by_id``;
+    held on SRS_PARITY_Q queries to the same index run on the host. Returns
+    the kernels' launches over the timed batches."""
+    import numpy as np
+    from repro_torch.baselines import SRSIndex, build_srs, srs_query
+    from repro_torch.core import overall_ratio
+
+    t0 = time.perf_counter()
+    srs = build_srs(ds.db, m=SRS_M, device=dev)
+    torch.cuda.synchronize()
+    say("srs", m=SRS_M, t_prime=SRS_TPRIME, build_s=f"{time.perf_counter() - t0:.3f}",
+        index_bytes=srs.index_bytes, e2lsh_index_storage_bytes=e2lsh_bytes["storage"],
+        e2lsh_index_device_bytes=e2lsh_bytes["device"], db_bytes=int(ds.db.nbytes))
+    for kern in kernels:
+        kern.launches = 0
+    Q = queries.shape[0]
+    for k in (1, K):
+        torch.cuda.reset_peak_memory_stats()
+        (ids, dists, checked), times = timed_runs(
+            torch, lambda: srs_query(srs, queries, k=k, t_prime=SRS_TPRIME))
+        ratio = overall_ratio(dists.cpu().numpy(), exact_dists[:, :k])
+        # the stop test certifies the best distance only, so a query may stop
+        # with fewer than k candidates examined: its last slots stay +inf
+        filled = torch.isfinite(dists).sum(dim=1)
+        say("srs", batch=Q, k=k, p50_ms=f"{statistics.median(times) * 1e3:.3f}",
+            qps=f"{Q * len(times) / sum(times):.1f}", overall_ratio_vs_exact=f"{ratio:.4f}",
+            checked_mean=f"{float(checked.float().mean()):.2f}",
+            checked_max=int(checked.max()), filled_share=f"{float(filled.sum()) / (Q * k):.4f}",
+            peak_bytes=torch.cuda.max_memory_allocated())
+        check(ids.shape == (Q, k) and bool((filled == checked.clamp(max=k)).all()),
+              f"SRS results malformed at k={k}: finite slots != min(checked, k)")
+        check(int(checked.max()) <= SRS_TPRIME, f"SRS checked past T' at k={k}")
+        check(k > 1 or ratio < 1.5, f"SRS overall ratio {ratio} at k=1 is not an ANN result")
+    launches = {kern.name: kern.launches for kern in kernels}
+    say("srs", launches=json.dumps(launches))
+    profile_batches(torch, lambda: srs_query(srs, queries, k=K, t_prime=SRS_TPRIME),
+                    statistics.median(times), n_prof=3, plan="srs")
+    check(launches["l2_distance"] == 2 * (REPEATS + 1),
+          f"SRS did not run its distances through l2_distance_by_id once a batch: {launches}")
+    # the same index on the host
+    host = SRSIndex.from_numpy(proj=srs.proj.cpu().numpy(), db=ds.db, device="cpu")
+    qs = queries[:SRS_PARITY_Q]
+    got = [x.cpu().numpy() for x in srs_query(srs, qs, k=K, t_prime=SRS_TPRIME)]
+    t0 = time.perf_counter()
+    want = [x.numpy() for x in srs_query(host, qs.cpu(), k=K, t_prime=SRS_TPRIME)]
+    fin = np.isfinite(want[1])
+    check(bool((np.isfinite(got[1]) == fin).all()), "SRS filled other slots on the card")
+    ok, swaps, rel = knn_agreement(got[0][fin], got[1][fin], want[0][fin], want[1][fin], TOL)
+    tied = (got[0] == want[0]) | np.isclose(got[1], want[1], rtol=TOL, atol=TOL)
+    say("srs", parity="card vs host", queries=SRS_PARITY_Q, k=K, host_s=f"{time.perf_counter() - t0:.3f}",
+        tie_swaps=swaps, max_rel_err=f"{rel:.3e}",
+        checked_equal=int((got[2] == want[2]).sum()))
+    check(ok and bool(tied.all()), "SRS on the card differs from the host run beyond ties")
+    return launches
+
+
+def qalsh_phase(torch, dev, ds, queries, exact_dists, kernels):
+    """[qalsh]: QALSH (K = QALSH_K lines) over the whole database, QALSH_Q
+    queries at k = 1 on the card, held to the same index run on the host."""
+    import numpy as np
+    from repro_torch.baselines import QALSHIndex, build_qalsh, qalsh_query
+    from repro_torch.core import overall_ratio
+
+    t0 = time.perf_counter()
+    qa = build_qalsh(ds.db, K=QALSH_K, device=dev)
+    torch.cuda.synchronize()
+    say("qalsh", K=QALSH_K, w=qa.w, collision_ratio=qa.collision_ratio,
+        build_s=f"{time.perf_counter() - t0:.3f}", index_bytes=qa.index_bytes)
+    qs = queries[:QALSH_Q]
+    for kern in kernels:
+        kern.launches = 0
+    qalsh_query(qa, qs[:1], k=1)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [x.cpu().numpy() for x in qalsh_query(qa, qs, k=1)]
+    t_card = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels}
+    ratio = overall_ratio(got[1], exact_dists[:QALSH_Q, :1])
+    say("qalsh", queries=QALSH_Q, k=1, ms_per_query=f"{t_card / QALSH_Q * 1e3:.3f}",
+        overall_ratio_vs_exact=f"{ratio:.4f}", checked_mean=f"{got[2].mean():.1f}",
+        rounds_mean=f"{got[3].mean():.3f}", rounds_max=int(got[3].max()),
+        launches=json.dumps(launches))
+    check(ratio < 1.5 and bool((got[3] >= 1).all()), f"QALSH overall ratio {ratio}")
+    host = QALSHIndex.from_numpy(proj=qa.proj.cpu().numpy(),
+                                 sorted_vals=qa.sorted_vals.cpu().numpy(),
+                                 sorted_ids=qa.sorted_ids.cpu().numpy(), db=ds.db, w=qa.w,
+                                 collision_ratio=qa.collision_ratio, device="cpu")
+    t0 = time.perf_counter()
+    want = [x.numpy() for x in qalsh_query(host, qs.cpu(), k=1)]
+    same = {name: int((g == w).reshape(QALSH_Q, -1).all(axis=1).sum())
+            for name, g, w in zip(("ids", "checked", "rounds"),
+                                  (got[0], got[2], got[3]), (want[0], want[2], want[3]))}
+    err = float(np.abs(got[1] - want[1]).max())
+    say("qalsh", parity="card vs host", queries=QALSH_Q, host_s=f"{time.perf_counter() - t0:.3f}",
+        rows_equal=json.dumps(same), max_abs_err=f"{err:.3e}")
+    check(all(v == QALSH_Q for v in same.values()) and err <= TOL,
+          f"QALSH on the card differs from the host run: {same}, dists {err}")
+
+
 def serve_cli_phase():
     """[serve_cli]: the ANN entry point as a user runs it, on the card."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "ann", "--n", "20000",
@@ -856,6 +1112,7 @@ def main(argv=None) -> int:
 
     # a run that outlives its budget dumps every thread's stack and exits 1
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -916,20 +1173,9 @@ def main(argv=None) -> int:
     engine = SearchEngine(idx)
     queries = torch.from_numpy(ds.queries).to(dev)
 
-    def timed_batches(q):
-        res = engine.query(q, plan="fused", k=K)   # warm-up
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPEATS):
-            t = time.perf_counter()
-            res = engine.query(q, plan="fused", k=K)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return res, times
-
-    res, times = timed_batches(queries)
+    res, times = timed_runs(torch, lambda: engine.query(queries, plan="fused", k=K))
     per_batch = [kern.launches // (REPEATS + 1) for kern in KERNELS]
-    res1, times1 = timed_batches(queries[:1])
+    res1, times1 = timed_runs(torch, lambda: engine.query(queries[:1], plan="fused", k=K))
     launches = {kern.name: kern.launches for kern in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     check(all(launches[k] > 0 for k in ("lsh_hash", "bucket_probe", "l2_distance")),
@@ -978,7 +1224,7 @@ def main(argv=None) -> int:
 
     # ---- [exact]: the exact k-NN baseline's path ----------------------------
     t_phase = time.perf_counter()
-    exact_launches = exact_phase(torch, ix, queries, ds, res, KERNELS)
+    exact_launches, exact_dists = exact_phase(torch, ix, queries, ds, res, KERNELS)
     say("exact", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     # ---- [spill] and [external]: plan="external" from a spill file ---------
@@ -1059,11 +1305,37 @@ def main(argv=None) -> int:
                        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
     say("kernels", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
+    # ---- the sharded plan and the small-index baselines, after the main
+    # index is dropped (the sharded index holds as many bytes again)
+    e2lsh_bytes = dict(device=ix.nbytes(), storage=idx.index.stats.index_storage_bytes)
+    del idx, engine, ix, pack, a2, flush, res, res1, oracle
+    torch.cuda.empty_cache()
+    by_path = dict(fused=launches, exact=exact_launches)
+    t_phase = time.perf_counter()
+    by_path["sharded"], by_path["sharded_queue"] = sharded_phase(
+        torch, dev, ds, queries, exact_dists, KERNELS)
+    torch.cuda.empty_cache()
+    say("sharded", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    by_path["srs"] = srs_phase(torch, dev, ds, queries, exact_dists, e2lsh_bytes, KERNELS)
+    torch.cuda.empty_cache()
+    say("srs", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    qalsh_phase(torch, dev, ds, queries, exact_dists, KERNELS)
+    say("qalsh", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
+                     l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
+    for rec in record:
+        kernel = kernel_of[rec["name"]]
+        rec["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()
+                                   if counts.get(kernel)}
+
     # ---- [serve_cli]: the ANN entry point in a process of its own -----------
     t_phase = time.perf_counter()
     serve_cli_phase()
     say("serve_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
 
+    say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

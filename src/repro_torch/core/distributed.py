@@ -1,0 +1,280 @@
+"""The sharded in-memory plan: the database range-partitioned into shards,
+one sub-index per shard under a SHARED hash family, every shard probed and
+the shards' top-k merged (counterpart of ``repro.core.distributed``).
+
+The paper runs one node with 1-12 drives (Table 5, Fig. 15: query speed
+scales with aggregate IOPS). The reference treats each device's memory as
+one drive and runs the shards in parallel under ``shard_map``, merging with
+an all-gather. Here the shards share one device: ``sharded_query_result``
+loops over them, runs the plan body on each under one ``QueryConfig``
+(the per-shard S budget), offsets each shard's ids by its base, and merges
+as the reference's all-gather merge does (the squared distances
+concatenated in shard order, a stable sort, the first k, ``sqrt``), so the
+result is the reference's bit for bit given the same per-shard results.
+``torch.distributed`` would carry the merge across several ranks; one
+process with one card needs none.
+
+Layout: ``ShardedIndexArrays.arrays`` is a tuple of per-shard
+``IndexArrays``, each at its own extent, which share the family tensors
+``a``/``b``/``rm``. The reference stacks the shards into one padded array
+per leaf, which ``shard_map`` needs and a loop does not;
+``ShardedIndexArrays.from_numpy`` strips such a stack to the per-shard
+data. The reference's ``specs()`` (``PartitionSpec``s for ``shard_map``)
+has no torch counterpart and is left out.
+
+Per-shard candidate budget: the paper examines S candidates per (R, c)-NN;
+with SH shards the default is ``max(4k, ceil(S / SH))`` per shard, so the
+aggregate work matches the single-node algorithm (``s_cap_per_shard``
+overrides it).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .hashing import make_hash_family
+from .index import IndexArrays, build_index
+from .probabilities import LSHParams, solve_params
+from .query import QueryConfig, QueryResult, fused_plan_body, oracle_plan_body
+from ..kernels.bucket_probe.ops import INVALID
+from ..kernels.dispatch import resolve_device
+
+__all__ = ["ShardedIndexArrays", "build_sharded_index", "sharded_query_result",
+           "make_sharded_query_fn"]
+
+_FAMILY = ("a", "b", "rm")
+
+
+@dataclasses.dataclass
+class ShardedIndexArrays:
+    """Per-shard index tensors on one device: ``arrays[s]`` indexes database
+    rows ``shard_offsets[s]`` .. ``shard_offsets[s+1]`` (the last up to
+    ``params.n``) by their local ids; every shard shares one family."""
+
+    arrays: tuple          # per-shard IndexArrays (a/b/rm tensors shared)
+    shard_offsets: tuple   # global id base per shard (ints)
+    params: LSHParams
+    num_shards: int
+
+    @property
+    def block_objs(self) -> int:
+        return self.arrays[0].block_objs
+
+    @property
+    def lane_pad(self) -> int:
+        return self.arrays[0].lane_pad
+
+    @property
+    def device(self) -> torch.device:
+        return self.arrays[0].device
+
+    def nbytes(self) -> int:
+        """Device bytes of every shard, the shared family counted once."""
+        fam = sum(getattr(self.arrays[0], f).nbytes for f in _FAMILY)
+        return sum(ix.nbytes() - fam for ix in self.arrays) + fam
+
+    def to(self, device) -> "ShardedIndexArrays":
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        fam = {f: getattr(self.arrays[0], f).to(device) for f in _FAMILY}
+        arrays = tuple(dataclasses.replace(
+            ix, **fam, **{f: getattr(ix, f).to(device) for f in ix.array_fields()
+                          if f not in _FAMILY}) for ix in self.arrays)
+        return dataclasses.replace(self, arrays=arrays)
+
+    def with_block_objs(self, block_objs: int,
+                        lane_pad: Optional[int] = None) -> "ShardedIndexArrays":
+        """Re-blockify every shard's block store from its CSR view at a new
+        block size (the timing knob); the same layout returns self."""
+        lp = self.lane_pad if lane_pad is None else int(lane_pad)
+        if int(block_objs) == self.block_objs and lp == self.lane_pad:
+            return self
+        return dataclasses.replace(self, arrays=tuple(
+            ix.with_block_objs(int(block_objs), lp) for ix in self.arrays))
+
+    def to_global(self) -> IndexArrays:
+        """The ONE global index this sharded build partitions, on the shards'
+        device.
+
+        Every shard hashes with the shared family and the partition is by
+        range, so a global bucket's entries are its per-shard entries
+        concatenated in shard order (ascending global id, the order a single
+        ``build_index(db, params, family=family)`` packs). The result is
+        re-blockified by ``IndexArrays.from_csr``: the global chain-block
+        layout, which is not the per-shard one
+        (``sum(ceil(cnt_s/BLK)) != ceil(cnt/BLK)``); that is the index
+        ``spill`` stripes. Leaf for leaf the reference's ``to_global()``.
+        """
+        ix0 = self.arrays[0]
+        dev = ix0.device
+        cnt = torch.stack([ix.table_cnt for ix in self.arrays]).to(torch.int64)
+        gcnt = cnt.sum(dim=0)                    # [r, L, 2^u]
+        flat = gcnt.reshape(-1)
+        goff = torch.cumsum(flat, 0) - flat
+        gid = torch.zeros(int(flat.sum()), dtype=torch.int32, device=dev)
+        gfp = torch.zeros_like(gid)
+        before = torch.cumsum(cnt, dim=0) - cnt  # earlier shards' entries a bucket
+        for s, ix in enumerate(self.arrays):
+            c = cnt[s].reshape(-1)
+            nz = torch.nonzero(c > 0).squeeze(1)
+            if nz.numel() == 0:
+                continue
+            reps = c[nz]
+            total = int(reps.sum())
+            # per-bucket ramp 0..cnt-1 without a loop over buckets
+            ramp = (torch.arange(total, dtype=torch.int64, device=dev)
+                    - torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps,
+                                              output_size=total))
+            src = torch.repeat_interleave(ix.table_off.reshape(-1)[nz].to(torch.int64),
+                                          reps, output_size=total) + ramp
+            dst = torch.repeat_interleave(goff[nz] + before[s].reshape(-1)[nz], reps,
+                                          output_size=total) + ramp
+            gid[dst] = ix.entries_id[src] + int(self.shard_offsets[s])
+            gfp[dst] = ix.entries_fp[src]
+        toff = torch.where(flat > 0, goff, -1).reshape(gcnt.shape).to(torch.int32)
+        return IndexArrays.from_csr(
+            a=ix0.a, b=ix0.b, rm=ix0.rm, table_off=toff, table_cnt=gcnt.to(torch.int32),
+            entries_id=gid, entries_fp=gfp,
+            db=torch.cat([ix.db for ix in self.arrays]),
+            db_norm2=torch.cat([ix.db_norm2 for ix in self.arrays]),
+            block_objs=self.block_objs, lane_pad=self.lane_pad)
+
+    def spill(self, path, *, params=None, stats=None) -> dict:
+        """Write this sharded index as a sharded spill directory: the GLOBAL
+        index's block store striped round-robin over ``num_shards`` files
+        (``repro_torch.storage.spill_index_sharded``, byte for byte the
+        reference's). ``load_external_sharded(path)`` serves it under
+        ``plan="sharded_external"``, bit-exact with ``plan="fused"`` over
+        ``to_global()``. Returns the manifest payload."""
+        from ..storage.format import spill_index_sharded
+        return spill_index_sharded(
+            path, self.to_global(), self.num_shards,
+            params=params if params is not None else self.params, stats=stats)
+
+    @staticmethod
+    def from_numpy(leaves: dict, *, shard_offsets, params: LSHParams,
+                   block_objs: int, lane_pad: int, device) -> "ShardedIndexArrays":
+        """Carry the reference's sharded index across: ``leaves`` keyed by
+        field name, ``a``/``b``/``rm`` replicated and every other leaf
+        stacked [SH, ...] and padded to the largest shard
+        (``np.asarray(getattr(sh.arrays, name))``). Each shard is stripped
+        to its own extent: n_s db rows, ``sum(table_cnt[s])`` entries and
+        ``1 + sum(ceil(table_cnt[s] / block_objs))`` block rows."""
+        offs = [int(o) for o in np.asarray(shard_offsets)]
+        bounds = offs + [int(params.n)]
+        fam = {f: leaves[f] for f in _FAMILY}
+        arrays = []
+        for s in range(len(offs)):
+            cnt = np.asarray(leaves["table_cnt"][s], np.int64)
+            n_s, e_s = bounds[s + 1] - bounds[s], int(cnt.sum())
+            nb_s = 1 + int(((cnt + block_objs - 1) // block_objs).sum())
+            rows = dict(db=n_s, db_norm2=n_s, entries_id=e_s, entries_fp=e_s,
+                        ids_blocks=nb_s, fps_blocks=nb_s)
+            shard = {f: (np.asarray(leaves[f][s])[:rows[f]] if f in rows
+                         else np.asarray(leaves[f][s]))
+                     for f in IndexArrays.array_fields() if f not in _FAMILY}
+            arrays.append(IndexArrays.from_numpy({**fam, **shard}, block_objs=block_objs,
+                                                 lane_pad=lane_pad, device=device))
+        shared = {f: getattr(arrays[0], f) for f in _FAMILY}
+        return ShardedIndexArrays(
+            arrays=tuple(dataclasses.replace(ix, **shared) for ix in arrays),
+            shard_offsets=tuple(offs), params=params, num_shards=len(offs))
+
+
+def build_sharded_index(db, num_shards: int, *, c: float = 2.0, w: float = 4.0,
+                        gamma: float = 1.0, s_scale: float = 1.0, seed: int = 0,
+                        max_L: int = 64, u_bits: Optional[int] = None,
+                        device=None) -> ShardedIndexArrays:
+    """Range-partition ``db`` into ``num_shards`` shards and build one
+    sub-index per shard on ``device`` (None -> cuda) under one family drawn
+    from ``seed``. The parameters follow the GLOBAL n (paper Eq. 5: the
+    sublinearity is in the whole database's size); the table width ``u``
+    follows the largest shard."""
+    dev = resolve_device(device)
+    db = np.ascontiguousarray(db.cpu().numpy() if torch.is_tensor(db) else db,
+                              dtype=np.float32)
+    n, d = db.shape
+    bounds = np.linspace(0, n, num_shards + 1).astype(np.int64)
+    n_shard_max = int(np.max(np.diff(bounds)))
+    params = solve_params(
+        n, d, c=c, w=w, gamma=gamma, x_max=float(np.abs(db).max()), seed=seed,
+        s_scale=s_scale, max_L=max_L,
+        u_bits=u_bits if u_bits is not None
+        else max(8, int(math.floor(math.log2(max(n_shard_max, 256)))) - 1))
+    family = make_hash_family(r=params.r, L=params.L, m=params.m, d=d, w=params.w,
+                              u=params.u, fp_bits=params.fp_bits,
+                              generator=torch.Generator().manual_seed(seed), device=dev)
+    arrays = []
+    for s in range(num_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        sp = dataclasses.replace(params, n=hi - lo)
+        arrays.append(build_index(db[lo:hi], sp, family=family, device=dev).arrays)
+    return ShardedIndexArrays(arrays=tuple(arrays),
+                              shard_offsets=tuple(int(b) for b in bounds[:-1]),
+                              params=params, num_shards=num_shards)
+
+
+def sharded_query_result(sharded: ShardedIndexArrays, queries, *, k: int = 1,
+                         s_cap: Optional[int] = None,
+                         s_cap_per_shard: Optional[int] = None,
+                         local_plan: str = "fused", valid=None) -> QueryResult:
+    """Query every shard and merge, on the shards' device.
+
+    ``local_plan="fused"`` runs ``fused_plan_body`` on each shard's block
+    store (``SearchEngine``'s ``plan="sharded"``); ``"oracle"`` runs
+    ``oracle_plan_body`` through the same merge (the sharded plan's parity
+    target). ``nio_table``, ``nio_blocks`` and ``cands_checked`` are summed
+    over the shards (paper Fig. 15: the total I/O observed); ``found`` is
+    any shard's success and ``radii_searched`` the deepest schedule any
+    shard walked. ``probe_sizes`` is not collected. ``valid`` [Q] bool masks
+    padded serving rows, inert on every shard.
+    """
+    if local_plan not in ("fused", "oracle"):
+        raise ValueError(f"unknown local_plan {local_plan!r}")
+    p = sharded.params
+    base_S = int(s_cap or p.S)
+    cap = s_cap_per_shard or max(4 * k, -(-base_S // sharded.num_shards))
+    # both local plans read one cfg, chunked as the arrays are blockified
+    bo = sharded.block_objs
+    cfg = QueryConfig.from_params(p, k=k).replace(
+        s_cap=int(cap), block_objs=(bo if bo != p.block_objs else None))
+    dev = sharded.device
+    if not torch.is_tensor(queries):
+        queries = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
+    queries = queries.to(dev, torch.float32)
+    if valid is not None:
+        valid = torch.as_tensor(valid).to(dev, torch.bool)
+    body = fused_plan_body if local_plan == "fused" else oracle_plan_body
+    ids_all, d2_all = [], []
+    nio_t = nio_b = cands = found = radii = None
+    for ix, off in zip(sharded.arrays, sharded.shard_offsets):
+        res = body(ix, queries, cfg, valid)
+        ids_all.append(torch.where(res.ids == INVALID, INVALID, res.ids + int(off)))
+        d2_all.append(torch.where(torch.isinf(res.dists), torch.inf, res.dists ** 2))
+        if nio_t is None:
+            nio_t, nio_b, cands = res.nio_table, res.nio_blocks, res.cands_checked
+            found, radii = res.found, res.radii_searched
+        else:
+            nio_t, nio_b = nio_t + res.nio_table, nio_b + res.nio_blocks
+            cands = cands + res.cands_checked
+            found = found | res.found
+            radii = torch.maximum(radii, res.radii_searched)
+    all_ids, all_d2 = torch.cat(ids_all, dim=1), torch.cat(d2_all, dim=1)
+    order = torch.sort(all_d2, dim=1, stable=True).indices[:, :k]
+    d2 = torch.gather(all_d2, 1, order)
+    return QueryResult(ids=torch.gather(all_ids, 1, order), dists=torch.sqrt(d2),
+                       found=found, radii_searched=radii, nio_table=nio_t,
+                       nio_blocks=nio_b, cands_checked=cands, probe_sizes=None)
+
+
+def make_sharded_query_fn(sharded: ShardedIndexArrays, **kw):
+    """``fn(queries) -> QueryResult``: ``sharded_query_result`` with ``kw``
+    (k, s_cap, s_cap_per_shard, local_plan) bound."""
+    def fn(queries, valid=None):
+        return sharded_query_result(sharded, queries, valid=valid, **kw)
+    return fn

@@ -11,6 +11,10 @@ Modes
 The executable data structures are the same in both modes (here they live
 in the card's memory); what differs is the accounting and the modeled query
 time, as in the paper's Sec. 4 analysis framework.
+
+Querying delegates to ``core.query.SearchEngine``: ``E2LSHoS.query(qs,
+plan=...)`` is ``SearchEngine(self).query(qs, plan=...)`` on the index's
+device.
 """
 from __future__ import annotations
 
@@ -21,9 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .index import E2LSHIndex, build_index
+from .index import E2LSHIndex, IndexArrays, build_index
 from .probabilities import LSHParams, solve_params
-from .query import QueryResult, SearchEngine
+from .query import QueryConfig, QueryResult, SearchEngine
 from . import storage as storage_mod
 from ..kernels.dispatch import resolve_device
 
@@ -90,11 +94,26 @@ class E2LSHoS:
             self._engine = SearchEngine(self.index, device=self.index.arrays.device)
         return self._engine
 
-    def query(self, queries, *, k: int = 1, plan: Optional[str] = None,
-              collect_probe_sizes: bool = False, s_cap: Optional[int] = None,
-              block_objs: Optional[int] = None, valid=None) -> QueryResult:
-        """Run a query batch through the SearchEngine (plan "fused" by
-        default, "host" or "oracle")."""
+    def index_arrays(self, block_objs: Optional[int] = None) -> IndexArrays:
+        """The index tensors (natively blockified; re-blockified and memoized
+        when the ``block_objs`` timing knob differs)."""
+        return self.engine.arrays(block_objs)
+
+    def query_config(self, *, k: int = 1, collect_probe_sizes: bool = False,
+                     s_cap: Optional[int] = None, max_chain: int = 0,
+                     block_objs: Optional[int] = None) -> QueryConfig:
+        return self.engine.config(k=k, collect_probe_sizes=collect_probe_sizes,
+                                  s_cap=s_cap, max_chain=max_chain,
+                                  block_objs=block_objs)
+
+    def query(self, queries, *, k: int = 1, adaptive: bool = True,
+              plan: Optional[str] = None, collect_probe_sizes: bool = False,
+              s_cap: Optional[int] = None, block_objs: Optional[int] = None,
+              valid=None) -> QueryResult:
+        """Run a query batch through the SearchEngine: plan "fused", "host"
+        or "oracle"; None selects "fused" when ``adaptive``, else "oracle"."""
+        if plan is None:
+            plan = "fused" if adaptive else "oracle"
         return self.engine.query(queries, plan=plan, k=k,
                                  collect_probe_sizes=collect_probe_sizes,
                                  s_cap=s_cap, block_objs=block_objs, valid=valid)

@@ -31,6 +31,14 @@ One entry point over the plans of one single-device index:
   radius for the early exit: the pre-fusion host-driven loop, kept as a
   baseline of dispatch overhead. Same results as the oracle.
 
+Over a ``ShardedIndexArrays`` (``repro_torch.core.distributed``: the
+database range-partitioned, one sub-index per shard under a shared family):
+
+* ``plan="sharded"`` — the fused plan body per shard, the shards' top-k
+  merged as the reference's all-gather merge does;
+* ``plan="oracle"`` — the oracle body per shard through the same merge (the
+  parity target of the sharded plan).
+
 Over an ``ExternalIndex`` (``repro_torch.storage.load_external``: block rows
 on disk, hash tables resident on the device):
 
@@ -44,6 +52,11 @@ on disk, hash tables resident on the device):
 
 Masked rows (``valid=False``, a serving queue's padding) are inert: they
 start done, probe nothing, count zero I/O and report ``found=False``.
+
+Every ``SearchEngine.query`` call counts in ``e2lsh_query_calls_total{plan}``
+and, with tracing on, opens the root ``query`` span (plan, k) that the
+storage tier's spans hang from. ``make_plan_fn``'s closures over one index
+dispatch the plan body directly and record neither, as the reference's do.
 """
 from __future__ import annotations
 
@@ -62,10 +75,15 @@ from ..kernels.l2_distance.ops import l2_distance_by_id
 from ..kernels.l2_distance.ref import l2_distance_by_id_ref
 from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_all_radii
 from ..kernels.lsh_hash.ref import lsh_hash_ref
+from ..telemetry import get_registry, get_tracer
 
 __all__ = ["QueryConfig", "QueryResult", "SearchEngine", "fused_plan_body",
            "host_plan_body", "oracle_plan_body", "hash_stage", "table_lookup",
            "probe_stage"]
+
+_QUERY_CALLS = get_registry().counter(
+    "e2lsh_query_calls_total", "SearchEngine.query calls",
+    labelnames=("plan",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -470,15 +488,18 @@ _PLANS = {"fused": fused_plan_body, "host": host_plan_body,
 class SearchEngine:
     """One query entry point over the plans of one index.
 
-    ``index`` is an ``E2LSHoS`` facade, an ``E2LSHIndex`` or an
-    ``ExternalIndex`` (``repro_torch.storage``; a striped one serves
-    ``plan="sharded_external"``). ``device`` (None -> cuda) is where an
-    in-memory index's plans run; the index moves there if it lies elsewhere.
-    An external index runs on the device it was loaded on. Re-blockified
-    layouts for the ``block_objs`` timing knob are memoized.
+    ``index`` is an ``E2LSHoS`` facade, an ``E2LSHIndex``, a
+    ``ShardedIndexArrays`` (``repro_torch.core.distributed``: plans
+    "sharded" and "oracle") or an ``ExternalIndex`` (``repro_torch.storage``;
+    a striped one serves ``plan="sharded_external"``). ``device`` (None ->
+    cuda) is where an in-memory index's plans run; the index moves there if
+    it lies elsewhere. An external index runs on the device it was loaded
+    on. Re-blockified layouts for the ``block_objs`` timing knob are
+    memoized (per shard on a sharded index).
     """
 
     PLANS = tuple(_PLANS)
+    SHARDED_PLANS = ("sharded", "oracle")
     EXTERNAL_PLANS = ("external",)
     SHARDED_EXTERNAL_PLANS = ("sharded_external",)
 
@@ -486,7 +507,7 @@ class SearchEngine:
         if hasattr(index, "index") and hasattr(index, "tier"):  # E2LSHoS
             index = index.index
         self.params: LSHParams = index.params
-        self._external = None
+        self._external = self._sharded = None
         if hasattr(index, "store") and hasattr(index, "blocks_head"):
             # an ExternalIndex: its block rows live on disk behind the
             # BlockStore, its resident tensors on the device it was loaded on
@@ -498,7 +519,10 @@ class SearchEngine:
             self._external_striped = hasattr(index, "num_shards")
             return
         self.device = resolve_device(device)
-        base = index.arrays.to(self.device)
+        if hasattr(index, "num_shards"):      # ShardedIndexArrays
+            base = self._sharded = index.to(self.device)
+        else:
+            base = index.arrays.to(self.device)
         self._base_block_objs = base.block_objs
         self._by_block_objs = {base.block_objs: base}
 
@@ -507,7 +531,7 @@ class SearchEngine:
         if self._external is not None:
             return (self.SHARDED_EXTERNAL_PLANS if self._external_striped
                     else self.EXTERNAL_PLANS)
-        return self.PLANS
+        return self.SHARDED_PLANS if self._sharded is not None else self.PLANS
 
     @property
     def default_plan(self) -> str:
@@ -521,14 +545,22 @@ class SearchEngine:
         ledger)."""
         return self._external
 
-    def arrays(self, block_objs: Optional[int] = None) -> IndexArrays:
-        """The index tensors, re-blockified (and memoized) on demand."""
+    def arrays(self, block_objs: Optional[int] = None):
+        """The index tensors, re-blockified (and memoized) on demand; on a
+        sharded engine the per-shard ``IndexArrays`` list, every shard
+        re-blockified."""
         if self._external is not None:
             raise ValueError(
                 "an external index keeps its block rows on disk; there is no "
                 "in-memory IndexArrays to serve. Use plan=\"external\" (the "
                 "BlockStore streams the rows), or load the whole index with "
                 f"repro_torch.storage.load_arrays({self._external.path!r})")
+        ix = self._layout(block_objs)
+        return ix.arrays if self._sharded is not None else ix
+
+    def _layout(self, block_objs: Optional[int]):
+        """The in-memory index (IndexArrays, or ShardedIndexArrays with every
+        shard re-blockified) at ``block_objs``, memoized."""
         bo = int(block_objs or self._base_block_objs)
         if bo not in self._by_block_objs:
             self._by_block_objs[bo] = (
@@ -555,16 +587,49 @@ class SearchEngine:
         return valid.to(self.device, torch.bool)
 
     def _resolve(self, plan: Optional[str], *, k: int = 1,
-                 block_objs: Optional[int] = None, **kw):
+                 block_objs: Optional[int] = None,
+                 s_cap_per_shard: Optional[int] = None, **kw):
         """(run, target, cfg) of one plan: the plan body, the index it runs
-        over (re-blockified IndexArrays, or the ExternalIndex) and its
-        config. An external index's block size is fixed at spill time; its
-        plan rejects any other ``block_objs``."""
+        over (re-blockified IndexArrays, the sharded index, or the
+        ExternalIndex) and its config. An external index's block size is
+        fixed at spill time; its plan rejects any other ``block_objs``. On a
+        sharded index ``cfg`` is the schedule before the per-shard budget
+        (``sharded_query_result`` derives that)."""
         plan = plan or self.default_plan
         if plan not in self.plans:
-            kind = "an external" if self._external is not None else "an in-memory"
+            kind = ("an external" if self._external is not None else
+                    "a sharded" if self._sharded is not None else "an in-memory")
             raise ValueError(f"unknown plan {plan!r} for {kind} index; expected "
                              f"one of {self.plans}")
+        if self._sharded is not None:
+            if kw.get("collect_probe_sizes"):
+                raise ValueError("collect_probe_sizes is not supported under the "
+                                 "sharded plans")
+            if kw.get("max_chain"):
+                raise ValueError("max_chain override is not supported under the "
+                                 "sharded plans (the per-shard schedule is derived "
+                                 "from the index params)")
+            unknown = set(kw) - {"s_cap", "collect_probe_sizes", "max_chain"}
+            if unknown:
+                raise TypeError(f"unexpected plan kwargs {sorted(unknown)}")
+            from .distributed import sharded_query_result
+            s_cap = kw.get("s_cap")
+            local = "fused" if plan == "sharded" else "oracle"
+
+            def run(sharded, queries, cfg, valid=None):
+                return sharded_query_result(
+                    sharded, queries, k=k, s_cap=s_cap, s_cap_per_shard=s_cap_per_shard,
+                    local_plan=local, valid=valid)
+            return (run, self._layout(block_objs),
+                    self.config(k=k, s_cap=s_cap, block_objs=block_objs))
+        if s_cap_per_shard is not None:
+            if self._external is not None:
+                raise ValueError("s_cap_per_shard only applies to the in-memory "
+                                 "sharded plans (the striped external plan keeps "
+                                 "the global S budget, which is what makes it "
+                                 "bit-exact with fused)")
+            raise ValueError("s_cap_per_shard only applies to sharded plans; use "
+                             "s_cap for a single-device index")
         if self._external is not None:
             if self._external_striped:
                 from ..storage.sharded import sharded_external_plan as run
@@ -578,16 +643,24 @@ class SearchEngine:
 
     def query(self, queries, *, plan: Optional[str] = None, k: int = 1,
               s_cap: Optional[int] = None, block_objs: Optional[int] = None,
-              collect_probe_sizes: bool = False, valid=None) -> QueryResult:
+              collect_probe_sizes: bool = False,
+              s_cap_per_shard: Optional[int] = None, valid=None) -> QueryResult:
         """Run a query batch under the selected plan (None: "fused" for an
-        in-memory index, "external" for an external one).
+        in-memory index, "sharded" for a sharded one, "external" for an
+        external one).
 
+        s_cap_per_shard: the sharded plans' per-shard candidate budget
+        (default ``max(4k, ceil(S / num_shards))``); any other index raises.
         valid: optional [Q] bool mask for padded serving batches — masked rows
         are inert and the unmasked rows match an unpadded dispatch.
         """
-        run, target, cfg = self._resolve(plan, k=k, s_cap=s_cap, block_objs=block_objs,
-                                         collect_probe_sizes=collect_probe_sizes)
-        return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
+        plan = plan or self.default_plan
+        _QUERY_CALLS.inc(plan=plan)
+        with get_tracer().span("query", plan=plan, k=k):  # a no-op when tracing is off
+            run, target, cfg = self._resolve(plan, k=k, s_cap=s_cap, block_objs=block_objs,
+                                             collect_probe_sizes=collect_probe_sizes,
+                                             s_cap_per_shard=s_cap_per_shard)
+            return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
 
     def make_plan_fn(self, *, plan: Optional[str] = None, k: int = 1,
                      masked: bool = False, **kw):
@@ -595,11 +668,21 @@ class SearchEngine:
         config and the (re-blockified) index resolved once.
 
         masked=False: ``fn(queries) -> QueryResult``;
-        masked=True:  ``fn(queries, valid) -> QueryResult``."""
+        masked=True:  ``fn(queries, valid) -> QueryResult``.
+
+        On a sharded index the unmasked closure goes through ``query`` (and
+        so counts its calls), as the reference's does."""
         run, target, cfg = self._resolve(plan, k=k, **kw)
         if masked:
             def fn(queries, valid):
                 return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
+        elif self._sharded is not None:
+            plan = plan or self.default_plan
+
+            def fn(queries):
+                return self.query(queries, plan=plan, k=k, s_cap=kw.get("s_cap"),
+                                  block_objs=kw.get("block_objs"),
+                                  s_cap_per_shard=kw.get("s_cap_per_shard"))
         else:
             def fn(queries):
                 return run(target, self._as_queries(queries), cfg)

@@ -17,8 +17,10 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card and
 without that flag it raises instead of carrying on on the host. (The
-reference's ``--mode lm`` and its multi-device ``plan="sharded"`` branch wait
-for the port's LM stack and its sharded in-memory plan.)
+reference's ``--mode lm`` waits for the port's LM stack; its multi-device
+``plan="sharded"`` branch waits for a machine with several cards, while the
+sharded plan itself runs on one card through
+``repro_torch.core.distributed``.)
 """
 from __future__ import annotations
 
@@ -291,7 +293,7 @@ def main(argv=None):
     if args.mode == "lm":
         raise NotImplementedError(
             "--mode lm (LM decoding with the retrieval hook) is not ported yet: "
-            "it waits for the port's LM stack, ROADMAP.md Queue 1 item 9")
+            "it waits for the port's LM stack (ROADMAP.md, Queue 1)")
     server = None
     if args.metrics_port is not None:
         if args.trace_sampling > 0:

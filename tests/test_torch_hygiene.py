@@ -109,3 +109,56 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         serve.main(["--mode", "ann", "--n", "300", "--queries", "4", "--queue"])
     assert not made
+
+
+_NEW_MODULES_SCRIPT = """
+import sys
+import numpy as np
+import repro_torch.baselines, repro_torch.core.distributed
+from repro_torch.baselines import build_qalsh, build_srs, qalsh_query, srs_query
+from repro_torch.core import SearchEngine
+from repro_torch.core.distributed import build_sharded_index
+rng = np.random.default_rng(0)
+db = rng.normal(size=(500, 8)).astype(np.float32)
+ids, _, _ = srs_query(build_srs(db, device="cpu"), db[:5], k=2)
+assert (ids[:, 0].numpy() == np.arange(5)).all(), ids
+ids, _, _, _ = qalsh_query(build_qalsh(db, K=32, device="cpu"), db[:3], k=1)
+assert (ids[:, 0].numpy() == np.arange(3)).all(), ids
+sh = build_sharded_index(db, 2, gamma=0.7, max_L=4, device="cpu")
+res = SearchEngine(sh, device="cpu").query(db[:5], k=2)
+assert res.ids.shape == (5, 2) and res.found.all(), res
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print("ok")
+"""
+
+
+def test_baselines_and_sharded_plan_run_without_importing_jax():
+    """``repro_torch.baselines`` (SRS, QALSH) and ``repro_torch.core.distributed``
+    import and answer queries with neither JAX nor the reference loaded."""
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES_SCRIPT], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_baselines_and_sharded_build_default_to_cuda():
+    """SRS, QALSH and the sharded build run on the card by default; without
+    one they raise rather than carry on on the host."""
+    from repro_torch.baselines import QALSHIndex, SRSIndex, build_qalsh, build_srs
+    from repro_torch.core.distributed import build_sharded_index
+
+    db = np.random.default_rng(4).normal(size=(300, 4)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert build_srs(db).db.device.type == "cuda"
+        return
+    for call in (lambda: build_srs(db), lambda: build_qalsh(db, K=8),
+                 lambda: build_sharded_index(db, 2, max_L=2),
+                 lambda: SRSIndex.from_numpy(proj=np.ones((4, 2), np.float32), db=db),
+                 lambda: QALSHIndex.from_numpy(proj=np.ones((4, 2), np.float32),
+                                               sorted_vals=np.zeros((2, 300), np.float32),
+                                               sorted_ids=np.zeros((2, 300), np.int32),
+                                               db=db, w=2.0, collision_ratio=0.5)):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()

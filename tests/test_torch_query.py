@@ -273,3 +273,76 @@ def test_cuda_fused_matches_oracle_on_agreeing_rows():
     # the parity rule chip_smoke.py holds: a tie within 2e-4 may swap ids
     differ = agree & ~fus.rows_agree(ref, tol=2e-4)
     assert not differ.any(), f"rows {np.flatnonzero(differ)} differ from the oracle"
+
+
+def _query_series(snap) -> dict:
+    entry = snap.get("e2lsh_query_calls_total")
+    if entry is None:
+        return {}
+    return {s["labels"]["plan"]: s["value"] for s in entry["samples"] if s["value"]}
+
+
+def test_query_telemetry_matches_reference(engine, built_index, clustered_data, tmp_path):
+    """After the same fused, oracle and external calls with tracing at
+    sampling 1.0, the port's registry holds the reference's
+    ``e2lsh_query_calls_total{plan}`` series and values, and its tracer the
+    reference's span names, the root ``query`` span included; every query
+    span carries its plan and k."""
+    import jax.numpy as jnp
+    from repro import telemetry as ref_tel
+    from repro.core import SearchEngine as RefEngine
+    from repro.storage import load_external as ref_load
+    from repro_torch import telemetry as tel
+    from repro_torch.storage import load_external
+
+    q = clustered_data["queries"][:8]
+    path = tmp_path / "ix.e2l"
+    built_index.index.spill(path)
+    ref_engine = RefEngine(built_index.index)
+    names = {}
+    for side, t, make_engine, load, qs in (
+            ("ref", ref_tel, lambda: ref_engine, ref_load, jnp.asarray(q)),
+            ("port", tel, lambda: engine, lambda p, **kw: load_external(p, device="cpu", **kw),
+             q)):
+        t.reset()
+        t.enable(sampling=1.0)
+        try:
+            e = make_engine()
+            e.query(qs, plan="fused", k=2)
+            e.query(qs, plan="oracle", k=2)
+            e.query(qs, k=2)
+            with load(path, backend="mem") as ext:
+                type(e)(ext).query(qs, k=2)
+            names[side] = (_query_series(t.snapshot()),
+                           sorted({sp.name for sp in t.get_tracer().spans()}))
+            roots = [sp for sp in t.get_tracer().spans() if sp.name == "query"]
+            assert sorted(sp.attrs["plan"] for sp in roots) == [
+                "external", "fused", "fused", "oracle"], side
+            assert all(sp.attrs["k"] == 2 for sp in roots)
+        finally:
+            t.disable()
+            t.reset()
+    assert names["port"][0] == names["ref"][0] == {"fused": 2, "oracle": 1, "external": 1}
+    assert names["port"][1] == names["ref"][1]
+    assert "query" in names["port"][1]
+
+
+def test_e2lshos_facade_entry_points(engine, built_index, clustered_data):
+    """``query(adaptive=False)`` is the oracle plan, ``adaptive=True`` the
+    fused one; ``index_arrays`` and ``query_config`` are the engine's."""
+    from repro_torch.core import E2LSHoS
+
+    idx = E2LSHoS(_carry(built_index.index))
+    q = clustered_data["queries"][:12]
+    _assert_identical(idx.query(q, k=3, adaptive=False), engine.query(q, plan="oracle", k=3))
+    _assert_identical(idx.query(q, k=3), engine.query(q, plan="fused", k=3))
+    _assert_identical(idx.query(q, k=3, adaptive=False, plan="fused"),
+                      engine.query(q, plan="fused", k=3))
+    assert idx.index_arrays() is idx.engine.arrays()
+    narrow = idx.index_arrays(16)
+    assert narrow.block_objs == 16 and idx.index_arrays(16) is narrow
+    for name in IndexArrays.array_fields():
+        assert torch.equal(getattr(narrow, name), getattr(engine.arrays(16), name)), name
+    kw = dict(k=3, s_cap=8, max_chain=2, block_objs=16, collect_probe_sizes=True)
+    assert idx.query_config(**kw) == engine.config(**kw)
+    assert idx.query_config() == engine.config()

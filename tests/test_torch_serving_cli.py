@@ -62,7 +62,7 @@ def test_sharded_spill_queue_report(capsys, tmp_path):
 
 
 def test_lm_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=r"LM stack \(ROADMAP.md, Queue 1\)"):
         serve.main(["--mode", "lm"])
 
 
