@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at the SIFT1M shape of the paper's Table 1
+Drives the port's ANN paths at the SIFT1M shape of the paper's Table 1
 (n = 1,000,000, d = 128, 256 queries, synthetic data from seed 0) with the
 ANN server's defaults (gamma = 0.8, max_L = 32, c = 2, w = 4, 512 B blocks),
-and holds each to the repo's own contracts:
+then LM serving with the retrieval hook at deepseek-7b's full config, and
+holds each to the repo's own contracts:
 
   1. the card: name and power limit; the four hand-written kernels built
      from ``src/repro_torch/csrc`` by nvcc, one process per source;
@@ -56,6 +57,23 @@ and holds each to the repo's own contracts:
      distances on ``l2_distance_by_id``, its index bytes beside E2LSH's,
      held on 32 queries to the host run; and ``[qalsh]`` QALSH (K = 64) on
      16 queries at k = 1, held to the host run.
+  8. with the SIFT1M indexes dropped: ``[lm]`` LM serving with the retrieval
+     hook at deepseek-7b's full published config (30 layers, d_model 4096,
+     vocab 102,400, bf16 activations over fp32 masters; random weights from
+     seed 0): ``ServeEngine.generate`` of 2 prompts of 64 tokens for 8 steps,
+     each step's logits probing an E2LSHoS index over 5,000 unit rows of
+     width 102,400 (``launch.serve --mode lm``'s inputs and index settings):
+     prefill and decode ms, tokens/s, the hook's ms, peak memory and the
+     device busy share; 5 timed runs identical; every step's neighbours
+     equal to a direct fused query; the three query kernels launched at
+     least once a step and held to their plain versions at D = 102,400 and
+     at D = 50,280 (mamba2-1.3b's vocab, [lm_cli]'s width); the
+     same parameters in float32, prefill + 4 decode steps equal to the
+     forward at 1e-3. ``[lm_reduced]``: each of the 10 archs at its reduced
+     config on the card against the CPU (forward logits, a 4-step
+     generate). ``[lm_cli]``, after ``[serve_cli]``: ``python -m
+     repro_torch.launch.serve --mode lm --arch mamba2-1.3b --steps 8
+     --retrieval`` (full width) in a subprocess on the card.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -104,6 +122,13 @@ SRS_PARITY_Q = 32           # queries held to the same SRS run on the host
 QALSH_K = 64                # [qalsh]: lines, the paper harness's setting
 QALSH_Q = 16                # queries (the harness times QALSH on 16: it is slow)
 QUERY_KERNELS = ("lsh_hash", "bucket_probe", "l2_distance")
+LM_ARCH = "deepseek-7b"     # [lm]: its published config, nothing cut
+LM_B, LM_T, LM_STEPS = 2, 64, 8   # launch.serve's LM defaults
+LM_DSTORE = 5000            # datastore rows (launch.serve's default)
+LM_K = 8                    # neighbours a decode step
+LM_TIMED = 5                # timed generates after one warm-up
+LM_FP32_TOL = 1e-3          # fp32 prefill/decode vs the forward over 30 layers
+LM_CLI_ARCH = "mamba2-1.3b"  # [lm_cli]: the serve CLI's default arch
 
 
 class SmokeFailure(RuntimeError):
@@ -198,7 +223,7 @@ def profile_batches(torch, run, p50_s, n_prof=5, **labels):
         busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / n_prof
     busy_ms = sum(busy.values()) / 1e3
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    say("profile", **labels, batch=N_QUERIES, device_busy_ms=f"{busy_ms:.4f}",
+    say("profile", **{"batch": N_QUERIES, **labels}, device_busy_ms=f"{busy_ms:.4f}",
         device_events=len(dev_events) // n_prof,
         idle_share=f"{1 - busy_ms / (p50_s * 1e3):.4f}" if busy else "not measured",
         top_us=json.dumps({k[:60]: round(v, 2) for k, v in top}))
@@ -895,6 +920,21 @@ def hash_bound_ms(n, d, r, L, m):
     return bound_ms(n * d * 4 + rlm * d * 4 + 3 * rlm * 4 + 2 * n * r * L * 4, 2 * n * d * rlm)
 
 
+def probe_bound_ms(rows_read, Q, L, BLKp, sbuf):
+    """probe_append's least time: the chain rows the gate reads (ids and
+    fingerprints), the [Q, L] inputs and the mask; the buffer and the two
+    counts out. Two compares and a select a slot."""
+    return bound_ms(rows_read * 2 * BLKp * 4 + 3 * Q * L * 4 + Q + Q * sbuf * 4 + 2 * Q * 4,
+                    rows_read * BLKp * 3)
+
+
+def by_id_bound_ms(n_valid, Q, D, sbuf):
+    """l2_distance_by_id's least time: a valid slot's row and norm; every
+    slot's id in and distance out; the queries and their norms."""
+    return bound_ms(n_valid * (D + 1) * 4 + 2 * Q * sbuf * 4 + Q * (D + 1) * 4,
+                    n_valid * (2 * D + 3))
+
+
 def hash_kernel_phase(torch, dev, ix, queries, hkw):
     """The hash kernel against its plain version: the index's family at
     N = 256, 2, 1 (the batch, a lone query as the plans pad it, a bare
@@ -1019,10 +1059,7 @@ def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
     L = cnt.shape[1]
 
     def probe_bound(rows_read):
-        # the rows the gate reads, both arrays; the [Q, L] inputs, the mask;
-        # the buffer and the two counts out. Two compares and a select a slot.
-        return bound_ms(rows_read * 2 * BLKp * 4 + 3 * Q * L * 4 + Q + Q * sbuf * 4 + 2 * Q * 4,
-                        rows_read * BLKp * 3)
+        return probe_bound_ms(rows_read, Q, L, BLKp, sbuf)
 
     pargs = (cnt, head, qfp, active, ix.ids_blocks, ix.fps_blocks)
     buf, count, blocks = probe_append(*pargs, **pkw)
@@ -1069,10 +1106,7 @@ def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
               f"l2_distance_by_id disagrees with its plain version ({label})")
         check(same_bits, f"l2_distance_by_id: {label} differs from the batch's bits")
     def by_id_bound(n_valid):
-        # a valid slot's row and norm; every slot's id in and distance out;
-        # the query and its norm
-        return bound_ms(n_valid * (D + 1) * 4 + 2 * Q * sbuf * 4 + Q * (D + 1) * 4,
-                        n_valid * (2 * D + 3))
+        return by_id_bound_ms(n_valid, Q, D, sbuf)
 
     dargs = (queries, buf, ix.db, ix.db_norm2, qn2)
     valid = buf != INVALID
@@ -1100,6 +1134,321 @@ def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
                         launches=launches["l2_distance"], max_abs_err=worst, ms=t_k,
                         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
     return records
+
+
+def lm_kernel_checks(torch, dev, idx, hn, flush):
+    """The three query kernels against their plain versions at the [lm]
+    retrieval hook's shapes (Q = the decode batch, D = the vocab): the hash
+    of the step's normalised logits, then radius 0 and the last radius of the
+    probe and the distance epilogue, as the fused plan calls them. Times each
+    at radius 0 beside its bound. Returns {kernel: max abs error}."""
+    from repro_torch.core import SearchEngine
+    from repro_torch.core import query as tq
+    from repro_torch.kernels import (INVALID, l2_distance_by_id, l2_distance_by_id_ref,
+                                     lsh_hash_all_radii, lsh_hash_all_radii_ref,
+                                     probe_append, probe_append_ref)
+    from repro_torch.kernels.lsh_hash.ops import index_hash_pack
+    from repro_torch.kernels.lsh_hash.ref import floor_margin
+
+    engine = SearchEngine(idx)
+    cfg = engine.config(k=LM_K)
+    ix = engine.arrays(cfg.block_objs)
+    Q, D = hn.shape
+    hkw = dict(w=cfg.w, radii=cfg.radii, u=cfg.u, fp_bits=cfg.fp_bits)
+    pack = index_hash_pack(ix, w=cfg.w, radii=cfg.radii)
+    bk, fp = lsh_hash_all_radii(hn, ix.a, ix.b, ix.rm, **hkw, pack=pack)
+    bk_p, fp_p = lsh_hash_all_radii_ref(hn, ix.a, ix.b, ix.rm, **hkw)
+    safe = floor_margin(hn, ix.a, ix.b, w=cfg.w, radii=cfg.radii) > MARGIN
+    same = (bk == bk_p) & (fp == fp_p)
+    bad = int((safe & ~same).sum())
+    r, L, m, _ = ix.a.shape
+    t_h = median_ms(torch, lambda: lsh_hash_all_radii(hn, ix.a, ix.b, ix.rm, **hkw, pack=pack),
+                    flush=flush)
+    b_h, by_h = hash_bound_ms(Q, D, r, L, m)
+    say("lm", kernel="lsh_hash", Q=Q, D=D, r=r, L=L, m=m, hashes=same.numel(),
+        clear_of_boundary=int(safe.sum()), disagree_clear=bad,
+        flips_near_boundary=int((~safe & ~same).sum()), ms=f"{t_h:.4f}",
+        bound_ms=f"{b_h:.4f}", bound_by=by_h)
+    check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree at D={D}")
+    queries, qnorm2 = tq._prep_queries(hn)
+    cnt_all, head_all, qfp_all = tq.hash_stage(ix, queries, cfg)
+    active = torch.ones(Q, dtype=torch.bool, device=dev)
+    pkw = dict(block_objs=cfg.block_objs, max_chain=cfg.max_chain, S=cfg.S,
+               sbuf=tq._fused_sbuf(cfg))
+    worst = dict(lsh_hash=int(((bk - bk_p).abs() * safe).max()), bucket_probe=0.0,
+                 l2_distance_gathered=0.0)
+    for t in (0, cnt_all.shape[0] - 1):
+        pargs = (cnt_all[t], head_all[t], qfp_all[t], active, ix.ids_blocks, ix.fps_blocks)
+        got = probe_append(*pargs, **pkw)
+        want = probe_append_ref(*pargs, **pkw)
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        buf = got[0]
+        d2 = l2_distance_by_id(queries, buf, ix.db, ix.db_norm2, qnorm2)
+        d2_p = l2_distance_by_id_ref(queries, buf, ix.db, ix.db_norm2, qnorm2)
+        inf_same = bool(torch.equal(torch.isinf(d2), buf == INVALID))
+        err = float((d2 - d2_p).abs().nan_to_num(posinf=0.0).max())
+        worst["l2_distance_gathered"] = max(worst["l2_distance_gathered"], err)
+        n_valid = int((buf != INVALID).sum())
+        rows = int(got[2].sum())
+        t_p = median_ms(torch, lambda: probe_append(*pargs, **pkw), flush=flush)
+        t_d = median_ms(torch, lambda: l2_distance_by_id(queries, buf, ix.db, ix.db_norm2,
+                                                         qnorm2), flush=flush)
+        b_p, by_p = probe_bound_ms(rows, Q, L, ix.ids_blocks.shape[1], pkw["sbuf"])
+        b_d, by_d = by_id_bound_ms(n_valid, Q, D, pkw["sbuf"])
+        say("lm", kernel="bucket_probe", radius=t, Q=Q, exact=exact, rows_read=rows,
+            cands=int(got[1].sum()), ms=f"{t_p:.4f}", bound_ms=f"{b_p:.4f}", bound_by=by_p)
+        say("lm", kernel="l2_distance_gathered", radius=t, Q=Q, D=D, valid_slots=n_valid,
+            max_abs_err=f"{err:.3e}", inf_on_invalid=inf_same, ms=f"{t_d:.4f}",
+            bound_ms=f"{b_d:.4f}", bound_by=by_d)
+        check(exact, f"probe_append disagrees with its plain version at D={D}, radius {t}")
+        check(inf_same and bool(torch.allclose(d2, d2_p, rtol=TOL, atol=TOL)),
+              f"l2_distance_by_id disagrees with its plain version at D={D}, radius {t}")
+    return worst
+
+
+def lm_kernel_checks_at_cli_vocab(torch, dev, flush):
+    """lm_kernel_checks at [lm_cli]'s retrieval width, mamba2-1.3b's vocab
+    (D = 50,280): LM_DSTORE unit rows made on the card from seed 1, indexed
+    as [lm]'s datastore is, probed by LM_B unit rows that are datastore rows
+    plus noise. Returns {kernel: max abs error}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import E2LSHoS
+
+    D = get_config(LM_CLI_ARCH).vocab
+    g = torch.Generator(dev).manual_seed(1)
+    ds = torch.randn(LM_DSTORE, D, generator=g, device=dev)
+    ds /= torch.linalg.vector_norm(ds, dim=1, keepdim=True)
+    idx = E2LSHoS.build(ds, gamma=0.8, max_L=16, seed=0, device=dev)
+    q = ds[:LM_B] + 0.5 * torch.randn(LM_B, D, generator=g, device=dev) / D ** 0.5
+    hn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    p = idx.params
+    say("lm", check="query kernels at the CLI arch's vocab", arch=LM_CLI_ARCH, D=D,
+        dstore_rows=LM_DSTORE, m=p.m, L=p.L, r=p.r, S=p.S)
+    return lm_kernel_checks(torch, dev, idx, hn, flush)
+
+
+def lm_fp32_check(torch, model, params, batch):
+    """The reference's test_prefill_decode_matches_forward at full width and
+    depth: the same parameters in float32, prefill on the first T - 4 tokens
+    and 4 decode steps against forward_train on all T, at LM_FP32_TOL."""
+    import dataclasses
+    from repro_torch.models import Model
+
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"), device=model.device)
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    full, _ = m32.forward_train(params, batch)
+    cache = m32.init_cache(B, T, torch.float32)
+    lg, cache = m32.prefill(params, {"tokens": tokens[:, :T - 4]}, cache)
+    steps = [lg[:, -1]]
+    for i in range(T - 4, T):
+        lg, cache = m32.decode_step(params, tokens[:, i:i + 1], cache)
+        steps.append(lg[:, 0])
+    got = torch.stack(steps, dim=1)                   # positions T-5 .. T-1
+    want = full[:, T - 5:]
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=LM_FP32_TOL, atol=LM_FP32_TOL))
+    say("lm", check="fp32 prefill + 4 decode steps vs forward_train", dtype="float32",
+        positions=f"{T - 5}..{T - 1}", max_abs_diff=f"{err:.3e}", tol=LM_FP32_TOL,
+        logits_abs_max=f"{float(want.abs().max()):.3f}")
+    check(ok and bool(torch.isfinite(full).all()),
+          f"fp32 prefill/decode differ from the forward by {err} (tol {LM_FP32_TOL})")
+
+
+def lm_phase(torch, dev, kernels, flush):
+    """[lm]: deepseek-7b at its full published config on the card, serving
+    LM_B prompts of LM_T tokens through ``ServeEngine.generate`` with the
+    retrieval hook over an E2LSHoS index of LM_DSTORE unit rows in the logits
+    space (``launch.serve``'s inputs and index settings). Returns the query
+    kernels' launches over the timed generates and their max errors at the
+    hook's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import E2LSHoS, SearchEngine
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models import Model
+    from repro_torch.serving import ServeEngine
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 products")
+    cfg = get_config(LM_ARCH)
+    n_params = cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(Model.param_count(params) == n_params, "deepseek-7b's parameter count")
+    say("lm", arch=LM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, activations=cfg.dtype, param_count=n_params,
+        fp32_master_bytes=4 * n_params, init_s=f"{init_s:.3f}", reduced="none")
+    t0 = time.perf_counter()
+    batch, dstore = lm_inputs(cfg, batch=LM_B, seq=LM_T, dstore=LM_DSTORE, seed=0,
+                              device=dev)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = E2LSHoS.build(dstore, gamma=0.8, max_L=16, seed=0, device=dev)
+    torch.cuda.synchronize()
+    p = idx.params
+    say("lm", dstore_rows=dstore.shape[0], dstore_dim=dstore.shape[1],
+        dstore_bytes=dstore.nbytes, host_data_s=f"{data_s:.3f}",
+        index_build_s=f"{time.perf_counter() - t0:.3f}", m=p.m, L=p.L, r=p.r, S=p.S,
+        index_device_bytes=idx.index.arrays.nbytes())
+    del dstore
+    hook = ServeEngine.make_retrieval_fn(idx, k=LM_K)
+    seen = []
+
+    def recording_hook(hidden):
+        seen.append(hidden)
+        return hook(hidden)
+
+    eng = ServeEngine(model, params, max_seq=LM_T + LM_STEPS + 1, cache_dtype=torch.bfloat16,
+                      retrieval_fn=recording_hook)
+    t0 = time.perf_counter()
+    warm = eng.generate(batch, steps=LM_STEPS)
+    torch.cuda.synchronize()
+    say("lm", warmup_generate_s=f"{time.perf_counter() - t0:.3f}")
+
+    # the path's run: counts 0 just before, read just after; each phase of
+    # a generate timed to the device's completion
+    times = dict(prefill=[], decode=[], retrieval=[])
+
+    def timed(fn, log):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            log.append(time.perf_counter() - t)
+            return out
+        return run
+
+    # the engine calls model.prefill / model.decode_step: time them on this
+    # instance (the class's methods are untouched)
+    model.prefill = timed(model.prefill, times["prefill"])
+    model.decode_step = timed(model.decode_step, times["decode"])
+    eng.retrieval_fn = timed(recording_hook, times["retrieval"])
+    for kern in kernels:
+        kern.launches = 0
+    outs, walls, grew = [], [], []
+    for _ in range(LM_TIMED):
+        before = {kern.name: kern.launches for kern in kernels}
+        seen.clear()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(batch, steps=LM_STEPS))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        grew.append({kern.name: kern.launches - before[kern.name] for kern in kernels})
+    launches = {kern.name: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    del model.prefill, model.decode_step
+    eng.retrieval_fn = recording_hook
+    out = outs[-1]
+    wall = statistics.median(walls)
+    dec_ms = statistics.median(times["decode"]) * 1e3
+    # a decode step's least time: every layer weight and the lm head read
+    # once (the embedding table is gathered, not read whole); with the fp32
+    # masters cast at each use, read 4 B, write 2 B and read 2 B a parameter
+    n_read = n_params - cfg.vocab * cfg.d_model
+    say("lm", timed_generates=LM_TIMED, batch=LM_B, prompt=LM_T, steps=LM_STEPS, k=LM_K,
+        launches=json.dumps(launches), launches_per_generate=json.dumps(grew[-1]),
+        prefill_ms_p50=f"{statistics.median(times['prefill']) * 1e3:.3f}",
+        decode_ms_p50=f"{dec_ms:.3f}",
+        decode_ms_min=f"{min(times['decode']) * 1e3:.3f}",
+        decode_ms_max=f"{max(times['decode']) * 1e3:.3f}",
+        retrieval_ms_p50=f"{statistics.median(times['retrieval']) * 1e3:.3f}",
+        generate_s_p50=f"{wall:.4f}", tokens_per_s=f"{LM_B * LM_STEPS / wall:.2f}",
+        decode_bound_cast_ms=f"{8 * n_read / HBM_BYTES_PER_S * 1e3:.3f}",
+        decode_bound_bf16_ms=f"{2 * n_read / HBM_BYTES_PER_S * 1e3:.3f}", peak_bytes=peak)
+    toks = out.tokens
+    check(toks.shape == (LM_B, LM_STEPS) and out.neighbors.shape == (LM_B, LM_STEPS, LM_K)
+          and bool(torch.isfinite(out.logits_last.float()).all()),
+          "the [lm] generate's outputs are malformed")
+    check(all(torch.equal(o.tokens, toks) and torch.equal(o.neighbors, out.neighbors)
+              for o in outs + [warm]), "the timed generates differ in tokens or neighbours")
+    check(all(g[n] >= LM_STEPS for g in grew for n in QUERY_KERNELS),
+          f"a query kernel launched fewer than {LM_STEPS} times in a generate: {grew}")
+    check(all(g["l2_distance_dense"] == 0 for g in grew), "[lm] launched the dense kernel")
+    # every step's neighbours against a direct fused query on the same rows
+    direct = SearchEngine(idx)
+    found = 0
+    for step, h in enumerate(seen):
+        hf = h.float()
+        hn = hf / torch.clamp_min(torch.linalg.vector_norm(hf, dim=1, keepdim=True), 1e-9)
+        res = direct.query(hn, plan="fused", k=LM_K)
+        check(torch.equal(res.ids, out.neighbors[:, step]),
+              f"step {step}: the hook's neighbours differ from a direct fused query")
+        found += int(res.found.sum())
+    say("lm", check="hook ids == SearchEngine(idx).query(plan='fused') ids", steps=len(seen),
+        rows_found=found, rows=LM_B * len(seen), sample_tokens=json.dumps(toks[0].tolist()),
+        sample_neighbors=json.dumps(out.neighbors[0, 0].tolist()))
+    profile_batches(torch, lambda: eng.generate(batch, steps=LM_STEPS), wall, n_prof=1,
+                    path="lm", batch=LM_B)
+    errs = lm_kernel_checks(torch, dev, idx, hn, flush)
+    del idx, direct, eng, hook, recording_hook
+    torch.cuda.empty_cache()
+    narrow = lm_kernel_checks_at_cli_vocab(torch, dev, flush)
+    errs = {name: max(err, narrow[name]) for name, err in errs.items()}
+    lm_fp32_check(torch, model, params, batch)
+    return launches, errs
+
+
+def lm_reduced_phase(torch, dev):
+    """[lm_reduced]: every arch at its reduced config, the same parameters on
+    the card and on the CPU: forward_train logits at 2e-4 (3e-4 with a
+    sliding window, the reference's bounds) and a 4-step generate's tokens."""
+    import numpy as np
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServeEngine
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, reduced=True)
+        tol = 3e-4 if cfg.swa_window else TOL
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32))}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+        gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+        gpu = Model(cfg, device=dev)
+        params = gpu.init(torch.Generator(dev).manual_seed(0))
+        cpu, cparams = Model(cfg, device="cpu"), to_cpu(params)
+        got, _ = gpu.forward_train(params, gpu_batch)
+        want, _ = cpu.forward_train(cparams, batch)
+        err = float((got.cpu() - want).abs().max())
+        gen = {}
+        for dev_, m, p_, b in (("cuda", gpu, params, gpu_batch), ("cpu", cpu, cparams, batch)):
+            eng = ServeEngine(m, p_, max_seq=40, cache_dtype=torch.float32, device=dev_)
+            gen[dev_] = eng.generate(b, steps=4).tokens.cpu()
+        same = bool(torch.equal(gen["cuda"], gen["cpu"]))
+        say("lm_reduced", arch=arch, family=cfg.family, forward_max_abs_err=f"{err:.3e}",
+            tol=tol, generate_tokens_equal=same)
+        check(bool(torch.allclose(got.cpu(), want, rtol=tol, atol=tol)),
+              f"{arch}: forward logits on the card differ from the CPU's by {err}")
+        check(same, f"{arch}: the card's generate differs from the CPU's")
+
+
+def lm_cli_phase():
+    """[lm_cli]: the LM entry point as a user runs it, on the card, at the
+    reference CLI's default arch (mamba2-1.3b, full width) with retrieval."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+           LM_CLI_ARCH, "--steps", "8", "--retrieval"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    say("lm_cli", cmd=json.dumps(" ".join(cmd[1:])), rc=out.returncode,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    for line in out.stdout.splitlines():
+        print(f"[lm_cli] {line}", flush=True)
+    check(out.returncode == 0, f"the LM serve CLI exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    check(any(line.startswith("generated (2, 8)") for line in lines)
+          and "retrieved neighbors per step: (2, 8, 1)" in lines,
+          f"the LM serve CLI printed no generated/neighbors lines: {out.stdout}")
 
 
 def main(argv=None) -> int:
@@ -1323,17 +1672,36 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     qalsh_phase(torch, dev, ds, queries, exact_dists, KERNELS)
     say("qalsh", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    torch.cuda.empty_cache()
+
+    # ---- [lm] and [lm_reduced]: LM serving with the retrieval hook ----------
+    t_phase = time.perf_counter()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    by_path["lm"], lm_errs = lm_phase(torch, dev, KERNELS, flush)
+    del flush
+    torch.cuda.empty_cache()
+    say("lm", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    lm_reduced_phase(torch, dev)
+    say("lm_reduced", seconds=f"{time.perf_counter() - t_phase:.3f}")
     kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
                      l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
     for rec in record:
         kernel = kernel_of[rec["name"]]
         rec["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()
                                    if counts.get(kernel)}
+        # the largest error over every shape checked, the [lm] hook's included
+        rec["max_abs_err"] = max(rec["max_abs_err"], lm_errs.get(rec["name"], 0))
 
     # ---- [serve_cli]: the ANN entry point in a process of its own -----------
     t_phase = time.perf_counter()
     serve_cli_phase()
     say("serve_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # ---- [lm_cli]: the LM entry point in a process of its own ---------------
+    t_phase = time.perf_counter()
+    lm_cli_phase()
+    say("lm_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": record}), flush=True)

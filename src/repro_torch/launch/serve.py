@@ -1,4 +1,5 @@
-"""ANN serving launcher: the paper's workload, served by the port.
+"""Serving launcher: batched ANN serving (the paper's workload) and LM
+serving with kNN retrieval over an E2LSHoS index, served by the port.
 
     # build an index over a synthetic dataset and answer one query batch
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ann --dataset sift \
@@ -15,11 +16,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ann --queue \
         --shards 2 --store uring --deadline-ms 50
 
+    # LM decode with the retrieval hook: each step's logits probe an index
+    # over a datastore in the logits space
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch mamba2-1.3b --reduced --steps 8 --retrieval
+
 Runs on the CUDA device unless ``--device cpu`` is given; without a card and
 without that flag it raises instead of carrying on on the host. (The
-reference's ``--mode lm`` waits for the port's LM stack; its multi-device
-``plan="sharded"`` branch waits for a machine with several cards, while the
-sharded plan itself runs on one card through
+reference's multi-device ``plan="sharded"`` branch waits for a machine with
+several cards, while the sharded plan itself runs on one card through
 ``repro_torch.core.distributed``.)
 """
 from __future__ import annotations
@@ -34,13 +39,16 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..configs import get_config
 from ..core import E2LSHoS, SearchEngine, measured_query, overall_ratio
 from ..core.e2lshos import _sync
 from ..data import make_dataset
 from ..kernels.dispatch import resolve_device
-from ..serving import BatchQueue, DeadlineExceeded
+from ..models import Model
+from ..serving import BatchQueue, DeadlineExceeded, ServeEngine
 
-__all__ = ["main", "serve_ann", "serve_ann_queued", "serve_ann_external"]
+__all__ = ["main", "serve_ann", "serve_ann_queued", "serve_ann_external", "serve_lm",
+           "lm_inputs"]
 
 
 def _ragged_requests(queries: np.ndarray, *, max_batch: int, seed: int):
@@ -221,6 +229,53 @@ def serve_ann(args):
           f"DRAM: {fp.dram_usage/1e6:.1f} MB (index part {fp.dram_index_part/1e6:.2f} MB)")
 
 
+def lm_inputs(cfg, *, batch: int, seq: int, dstore: int, seed: int, device):
+    """The LM server's inputs, drawn from one numpy stream seeded ``seed`` in
+    the reference's order: the prompt batch ({"tokens": [B, T] int32, +
+    "frames" [B, enc_frames, d] float32 for encdec}, on ``device``), then
+    the datastore, ``dstore`` unit-norm rows of width ``vocab`` (numpy
+    float32; 0 rows gives None)."""
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)).to(device)}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(device)
+    if not dstore:
+        return inputs, None
+    # kNN-LM style: a datastore of random "context" vectors in the model's
+    # output space
+    ds = rng.normal(size=(dstore, cfg.vocab)).astype(np.float32)
+    ds /= np.linalg.norm(ds, axis=1, keepdims=True)
+    return inputs, ds
+
+
+def serve_lm(args):
+    device = resolve_device(args.device)     # raises before any work
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device).manual_seed(args.seed))
+    batch, dstore = lm_inputs(cfg, batch=args.batch, seq=args.seq,
+                              dstore=args.dstore if args.retrieval else 0, seed=args.seed,
+                              device=device)
+    retrieval_fn = None
+    if args.retrieval:
+        idx = E2LSHoS.build(dstore, gamma=0.8, max_L=16, seed=args.seed, device=device)
+        retrieval_fn = ServeEngine.make_retrieval_fn(idx, k=args.k, device=device)
+    eng = ServeEngine(model, params, max_seq=args.seq + args.steps + 1,
+                      cache_dtype=cfg.activation_dtype, retrieval_fn=retrieval_fn,
+                      device=device)
+    t0 = time.perf_counter()
+    out = eng.generate(batch, steps=args.steps)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(out.tokens.shape)} in {dt:.2f}s "
+          f"({dt / args.steps * 1e3:.0f} ms/step at batch {args.batch})")
+    if out.neighbors is not None:
+        print(f"retrieved neighbors per step: {tuple(out.neighbors.shape)}")
+    print("sample:", out.tokens[0, :16].cpu().numpy())
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("ann", "lm"), default="ann")
@@ -277,6 +332,17 @@ def main(argv=None):
     ap.add_argument("--gamma", type=float, default=0.8)
     ap.add_argument("--max-L", dest="max_L", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="mamba2-1.3b", help="--mode lm: the model")
+    ap.add_argument("--reduced", action="store_true",
+                    help="--mode lm: the arch's reduced (CPU-test) config")
+    ap.add_argument("--batch", type=int, default=2, help="--mode lm: prompts")
+    ap.add_argument("--seq", type=int, default=64, help="--mode lm: prompt tokens")
+    ap.add_argument("--steps", type=int, default=8, help="--mode lm: decode steps")
+    ap.add_argument("--retrieval", action="store_true",
+                    help="--mode lm: probe an E2LSHoS index over the datastore with "
+                         "each decode step's logits")
+    ap.add_argument("--dstore", type=int, default=5000,
+                    help="--mode lm: datastore rows for --retrieval")
     ap.add_argument("--metrics-port", dest="metrics_port", type=int,
                     default=None,
                     help="expose live telemetry over HTTP while serving: "
@@ -290,10 +356,6 @@ def main(argv=None):
                          "up (per query tree; 0 disables tracing but keeps "
                          "/metrics live)")
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm (LM decoding with the retrieval hook) is not ported yet: "
-            "it waits for the port's LM stack (ROADMAP.md, Queue 1)")
     server = None
     if args.metrics_port is not None:
         if args.trace_sampling > 0:
@@ -303,7 +365,10 @@ def main(argv=None):
               f"(+ /trace?last=N, /snapshot; "
               f"trace sampling {args.trace_sampling:g})")
     try:
-        serve_ann(args)
+        if args.mode == "ann":
+            serve_ann(args)
+        else:
+            serve_lm(args)
     finally:
         if server is not None:
             server.stop()

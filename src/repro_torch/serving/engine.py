@@ -1,8 +1,9 @@
-"""The serving front end over the E2LSHoS query engine: ``BatchQueue``.
+"""Serving front ends: ``BatchQueue`` over the E2LSHoS query engine, and
+``ServeEngine``, LM decoding with a retrieval hook.
 
-The dynamic micro-batching request queue for the ANN workload (the paper's
-serving story at "millions of users" scale): callers submit arbitrary-size
-query batches, the queue assembles them into fixed batch-shape *ticks* (pad
+``BatchQueue`` is the dynamic micro-batching request queue for the ANN
+workload (the paper's serving story at "millions of users" scale): callers
+submit arbitrary-size query batches, the queue assembles them into fixed batch-shape *ticks* (pad
 + mask to a small ladder of shapes warmed up at startup), dispatches ONE plan
 call per tick, and scatters per-request ``QueryResult``s back with the
 padding rows dropped. Queued results are bit for bit what calling the plan
@@ -16,8 +17,13 @@ opens no other, and whole ticks are serialized. A tick's dispatch time covers
 the device's completion (one stream sync), and its result comes to the host
 in one transfer (``QueryResult.cpu``).
 
-(The reference's ``ServeEngine``, LM decoding with a retrieval hook, waits
-for the port's LM stack.)
+``ServeEngine`` (the port of the reference's, ``src/repro/serving/engine.py``)
+runs batched LM prefill and greedy decode over ``repro_torch.models.Model``
+with an optional retrieval hook (kNN-LM style: each decode step's logits
+query an E2LSHoS index, and neighbour ids ride alongside the tokens). The
+hook from ``make_retrieval_fn`` closes over the fused plan, so each step
+launches ``lsh_hash`` once and ``probe_append`` and ``l2_distance_by_id``
+once per radius.
 """
 from __future__ import annotations
 
@@ -26,15 +32,18 @@ import threading
 import time
 import weakref
 from collections import deque
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.query import QueryResult, SearchEngine
+from ..kernels.dispatch import resolve_device
+from ..models.model import Model
 from ..telemetry import get_registry, get_tracer
 
-__all__ = ["BatchQueue", "DeadlineExceeded", "QueryTicket", "TickStats"]
+__all__ = ["BatchQueue", "DeadlineExceeded", "QueryTicket", "TickStats",
+           "ServeEngine", "GenerationResult"]
 
 
 def _sync(device: torch.device) -> None:
@@ -783,3 +792,76 @@ def _collect_queue_metrics() -> dict:
 
 get_registry().register_collector(_collect_queue_metrics,
                                   name="serving.batch_queue")
+
+
+# --------------------------------------------------------------------------
+# LM serving with the retrieval hook
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: torch.Tensor                        # [B, steps] int32
+    logits_last: torch.Tensor                   # [B, vocab]
+    neighbors: Optional[torch.Tensor] = None    # [B, steps, k] retrieval ids
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params, *, max_seq: int = 4096,
+                 cache_dtype=torch.bfloat16, retrieval_fn: Optional[Callable] = None,
+                 device=None):
+        """retrieval_fn(hidden [B, V]) -> (ids [B, k], dists [B, k]).
+
+        ``device`` (None -> cuda; raises without a GPU unless "cpu") must be
+        the model's."""
+        dev = resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(f"the model lives on {model.device}, the engine on {dev}")
+        self.model = model
+        self.params = params
+        self.max_seq = max_seq
+        self.cache_dtype = cache_dtype
+        self.retrieval_fn = retrieval_fn
+        self.device = dev
+
+    @staticmethod
+    def make_retrieval_fn(index, *, k: int = 8, device=None) -> Callable:
+        """Retrieval hook closing over the fused query plan.
+
+        ``index`` is an ``E2LSHoS`` (or anything ``SearchEngine`` accepts),
+        served on ``device`` (None -> cuda; raises without a GPU unless
+        "cpu"). The hook casts the hidden state to float32 and scales each
+        row to unit norm (floor 1e-9), as the datastore's rows are."""
+        _, query_fn = SearchEngine(index, device=device).make_plan_fn(plan="fused", k=k)
+
+        def retrieval_fn(hidden):
+            h = hidden.float()
+            h = h / torch.clamp_min(torch.linalg.vector_norm(h, dim=1, keepdim=True), 1e-9)
+            res = query_fn(h)
+            return res.ids, res.dists
+
+        return retrieval_fn
+
+    def generate(self, batch: dict, *, steps: int = 16) -> GenerationResult:
+        """Prefill ``batch`` ({"tokens": [B, T]}, + "frames" for encdec),
+        then ``steps`` greedy decode steps; with a retrieval hook, each
+        step's logits probe the index."""
+        B = batch["tokens"].shape[0]
+        cache = self.model.init_cache(B, self.max_seq, self.cache_dtype)
+        logits, cache = self.model.prefill(self.params, batch, cache)
+        toks = []
+        neigh = [] if self.retrieval_fn is not None else None
+        cur = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        for _ in range(steps):
+            toks.append(cur)
+            logits, cache = self.model.decode_step(self.params, cur, cache)
+            if self.retrieval_fn is not None:
+                # kNN-LM hook: the index lives in the logits space
+                ids, _ = self.retrieval_fn(logits[:, 0])
+                neigh.append(ids)
+            cur = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
+        return GenerationResult(
+            tokens=torch.cat(toks, dim=1),
+            logits_last=logits[:, 0],
+            neighbors=torch.stack(neigh, dim=1) if neigh else None,
+        )

@@ -40,7 +40,8 @@ def test_port_runs_without_importing_jax():
 
 
 def test_port_sources_never_import_jax_or_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "retrieval_decode_torch.py"]
     assert len(files) > 10
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}
@@ -162,3 +163,71 @@ def test_baselines_and_sharded_build_default_to_cuda():
                                                db=db, w=2.0, collision_ratio=0.5)):
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             call()
+
+
+_LM_SCRIPT = """
+import sys
+import numpy as np
+import torch
+import repro_torch.configs, repro_torch.models
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core import E2LSHoS
+from repro_torch.models import Model
+from repro_torch.serving import GenerationResult, ServeEngine
+cfg = get_config("mamba2-1.3b", reduced=True)
+model = Model(cfg, device="cpu")
+params = model.init(torch.Generator().manual_seed(0))
+rng = np.random.default_rng(0)
+ds = rng.normal(size=(300, cfg.vocab)).astype(np.float32)
+idx = E2LSHoS.build(ds / np.linalg.norm(ds, axis=1, keepdims=True), max_L=4, device="cpu")
+eng = ServeEngine(model, params, max_seq=24, cache_dtype=torch.float32, device="cpu",
+                  retrieval_fn=ServeEngine.make_retrieval_fn(idx, k=2, device="cpu"))
+out = eng.generate({"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))}, steps=3)
+assert isinstance(out, GenerationResult) and out.neighbors.shape == (2, 3, 2), out
+assert len(ARCH_IDS) == 10
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print("ok")
+"""
+
+
+def test_lm_stack_runs_without_importing_jax():
+    """``repro_torch.models``, ``repro_torch.configs`` and the LM half of
+    ``repro_torch.serving`` import and generate (with the retrieval hook)
+    with neither JAX nor the reference loaded."""
+    out = subprocess.run([sys.executable, "-c", _LM_SCRIPT], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """Model, params_from_jax, ServeEngine, make_retrieval_fn and ``--mode lm``
+    run on the card by default; without one they raise before doing any work
+    on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import E2LSHoS
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, params_from_jax
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("deepseek-7b", reduced=True)
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+        return
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    tree = {k: v for k, v in params.items()}
+    db = np.random.default_rng(5).normal(size=(300, 4)).astype(np.float32)
+    idx = E2LSHoS.build(db, max_L=2, device="cpu")
+    for call in (lambda: Model(cfg), lambda: params_from_jax(tree, cfg),
+                 lambda: ServeEngine(cpu_model, params),
+                 lambda: ServeEngine.make_retrieval_fn(idx)):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    made = []
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: made.append(a))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        serve.main(["--mode", "lm", "--arch", "deepseek-7b", "--reduced", "--steps", "2"])
+    assert not made

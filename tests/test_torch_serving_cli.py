@@ -1,10 +1,9 @@
-"""The port's ANN entry point, ``python -m repro_torch.launch.serve``, on the
-CPU: the queue's report lines, in memory and from a spill, and the modes the
-port does not serve yet."""
+"""The port's serving entry point, ``python -m repro_torch.launch.serve``, on
+the CPU: the ANN queue's report lines, in memory and from a spill, and the
+LM mode."""
 import re
 
 import numpy as np
-import pytest
 
 from repro_torch.launch import serve
 
@@ -61,9 +60,15 @@ def test_sharded_spill_queue_report(capsys, tmp_path):
     assert len(_queue_lines(out)) == 3
 
 
-def test_lm_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match=r"LM stack \(ROADMAP.md, Queue 1\)"):
-        serve.main(["--mode", "lm"])
+def test_lm_mode_is_not_ported_yet(capsys):
+    """``--mode lm`` serves: a reduced model prefills, decodes and probes the
+    datastore index each step (tests/test_torch_lm_serving.py holds it to
+    the reference). The name dates from when the mode raised
+    NotImplementedError; it is kept so that the test's record runs on."""
+    serve.main(["--mode", "lm", "--device", "cpu", "--arch", "deepseek-7b", "--reduced",
+                "--steps", "2", "--seq", "8", "--retrieval", "--dstore", "500", "--k", "2"])
+    out = capsys.readouterr().out
+    assert "generated (2, 2)" in out and "retrieved neighbors per step: (2, 2, 2)" in out
 
 
 def test_ragged_requests_cover_the_stream_in_order():
