@@ -6,8 +6,9 @@
 Drives the port's ANN paths at the SIFT1M shape of the paper's Table 1
 (n = 1,000,000, d = 128, 256 queries, synthetic data from seed 0) with the
 ANN server's defaults (gamma = 0.8, max_L = 32, c = 2, w = 4, 512 B blocks),
-then LM serving with the retrieval hook at deepseek-7b's full config, and
-holds each to the repo's own contracts:
+then LM serving with the retrieval hook at deepseek-7b's full config and
+LM training at h2o-danube-1.8b's, and holds each to the repo's own
+contracts:
 
   1. the card: name and power limit; the four hand-written kernels built
      from ``src/repro_torch/csrc`` by nvcc, one process per source;
@@ -74,6 +75,26 @@ holds each to the repo's own contracts:
      generate). ``[lm_cli]``, after ``[serve_cli]``: ``python -m
      repro_torch.launch.serve --mode lm --arch mamba2-1.3b --steps 8
      --retrieval`` (full width) in a subprocess on the card.
+  9. with the LM serving state dropped: ``[train]`` LM training at
+     h2o-danube-1.8b's full config (24 layers, d_model 2560, GQA 32/8,
+     d_ff 6912, vocab 32,000, SWA 4096, bf16 activations over fp32
+     masters, ``remat="full"``; 1.83 G parameters, 29.3 GB of state):
+     ``make_train_step`` with AdamW on the reference's synthetic token
+     pipeline at B = 4, T = 2,048, one warm-up step and 7 timed steps:
+     step ms p50, tokens/s, model TFLOP/s and its share of the bf16 peak
+     (the count printed), peak memory, the device busy and idle share of
+     one profiled step with its time by kernel kind; every loss and grad
+     norm finite, every leaf moved, no query kernel launched. Then 2 layers
+     of it in float32 (0.30 G parameters, B = 1, T = 256): one step on the
+     card against the same step on the CPU (loss, grad norm, every leaf's
+     gradient, TF32 off), remat "full" against "none" and microbatch 1
+     against 0 on the card. ``[train_reduced]``: the 10 archs at reduced
+     config, one step, card against CPU. ``[train_dp]``: a one-rank nccl
+     group, ``make_dp_train_step`` against ``make_train_step`` and
+     ``compressed_psum`` against its formula. ``[train_cli]``, after
+     ``[lm_cli]``: ``python -m repro_torch.launch.train --reduced`` for 40
+     steps uninterrupted, and again sent SIGTERM after its step-10 line
+     and rerun: it resumes and ends on the same loss.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -84,6 +105,7 @@ import argparse
 import faulthandler
 import glob
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -129,6 +151,15 @@ LM_K = 8                    # neighbours a decode step
 LM_TIMED = 5                # timed generates after one warm-up
 LM_FP32_TOL = 1e-3          # fp32 prefill/decode vs the forward over 30 layers
 LM_CLI_ARCH = "mamba2-1.3b"  # [lm_cli]: the serve CLI's default arch
+BF16_FLOPS = 989e12         # H100 SXM bf16 dense tensor-core peak, NVIDIA data sheet
+TRAIN_ARCH = "h2o-danube-1.8b"  # [train]: its full config (remat="full"), nothing cut
+TRAIN_B, TRAIN_T = 4, 2048  # 8,192 tokens a step
+TRAIN_OPT = dict(lr=3e-4, total_steps=100, warmup_steps=10)
+TRAIN_TIMED = 7             # timed steps after one warm-up
+TRAIN_LOSS_RTOL = 1e-5      # card vs CPU, fp32: the loss and the grad norm, relative
+TRAIN_GRAD_TOL = 1e-3       # card vs CPU, fp32 at full width: of each leaf's max |g|
+TRAIN_REDUCED_GRAD_TOL = 2e-4   # card vs CPU at the reduced configs (the forward's bound)
+TRAIN_CLI_LOSS_RTOL = 1e-3  # [train_cli]: resumed vs uninterrupted last loss
 
 
 class SmokeFailure(RuntimeError):
@@ -210,7 +241,8 @@ def ptxas_report(log: str):
 
 def profile_batches(torch, run, p50_s, n_prof=5, **labels):
     """Where a batch's time goes: device busy time from the profiler against
-    the batch's wall p50 (single stream, so busy = sum of device events)."""
+    the batch's wall p50 (single stream, so busy = sum of device events).
+    Returns the device microseconds a run by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -227,6 +259,26 @@ def profile_batches(torch, run, p50_s, n_prof=5, **labels):
         device_events=len(dev_events) // n_prof,
         idle_share=f"{1 - busy_ms / (p50_s * 1e3):.4f}" if busy else "not measured",
         top_us=json.dumps({k[:60]: round(v, 2) for k, v in top}))
+    return busy
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, from its name: fp32 products (CUTLASS's
+    ``sgemm`` and cuBLAS's ``f32f32`` kernels: TF32 is off), bf16 products
+    (every other product kernel: cuBLAS's ``nvjet`` kernels carry no type in
+    their name), casts and copies, reductions, other elementwise work."""
+    n = name.lower()
+    if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        if "sgemm" in n or "f32f32" in n:
+            return "products_fp32"
+        return "products_bf16"
+    if "copy" in n:
+        return "copy_cast"
+    if "reduce" in n:
+        return "reduce"
+    if "elementwise" in n or "functor" in n:
+        return "elementwise"
+    return "other"
 
 
 def storage_info(path):
@@ -1451,6 +1503,378 @@ def lm_cli_phase():
           f"the LM serve CLI printed no generated/neighbors lines: {out.stdout}")
 
 
+def tree_cpu(tree):
+    """A host copy of a parameter dict (a step updates its input in place)."""
+    if isinstance(tree, dict):
+        return {k: tree_cpu(v) for k, v in tree.items()}
+    return tree.to("cpu", copy=True)
+
+
+def grad_errors(got, want):
+    """{leaf: |got - want| max / max(want's max |g|, 1e-3 of the largest
+    leaf's)}: an attention key bias's gradient is zero in exact arithmetic,
+    so both sides hold rounding noise there."""
+    def named(t, p=""):
+        if isinstance(t, dict):
+            return {k2: v2 for k in sorted(t) for k2, v2 in named(t[k], f"{p}{k}/").items()}
+        return {p[:-1]: t.float().cpu()}
+    got, want = named(got), named(want)
+    top = max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k] - want[k]).abs().max())
+            / max(float(want[k].abs().max()), 1e-3 * top) for k in want}
+
+
+def train_flops(cfg, B, T):
+    """The step's floating-point operations, as counted for its TFLOP/s:
+    6·N·P for the products (P: every parameter but the input embedding,
+    the lm head included), 2·N·P_layers for remat's second forward of each
+    layer, and the attention's QK^T and P·V over the causal (and window)
+    band: 4·B·H·hd·pairs a layer and pass, for the forward, its recompute
+    and the backward's two."""
+    N = B * T
+    P = cfg.param_count() - cfg.vocab * cfg.d_model
+    P_layers = P - cfg.vocab * cfg.d_model - cfg.d_model     # less lm head, final norm
+    w = cfg.swa_window or T
+    pairs = sum(min(q + 1, w) for q in range(T))
+    products = 6 * N * P
+    remat = 2 * N * P_layers if cfg.remat != "none" else 0
+    attn = (4 if cfg.remat != "none" else 3) * cfg.n_layers * 4 * B * cfg.n_heads * cfg.hd * pairs
+    return dict(products=products, remat=remat, attention=attn,
+                total=products + remat + attn, non_embedding_params=P)
+
+
+def train_phase(torch, dev, kernels):
+    """[train]: h2o-danube-1.8b at its full config on the card (24 layers,
+    d_model 2560, GQA 32/8, d_ff 6912, vocab 32,000, SWA 4096, bf16
+    activations over fp32 masters, remat="full"), AdamW on the reference's
+    synthetic token pipeline at B = 4, T = 2,048: one warm-up step, then
+    TRAIN_TIMED steps, each ended by reading its loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16", "h2o-danube-1.8b's config")
+    n_params = cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    state = init_train_state(model, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state.params)
+    check(Model.param_count(state.params) == n_params, "h2o-danube-1.8b's parameter count")
+    say("train", arch=TRAIN_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        swa_window=cfg.swa_window, activations=cfg.dtype, remat=cfg.remat,
+        param_count=n_params, leaves=len(leaves),
+        state_bytes=16 * n_params, state="fp32 masters, grads, mu, nu",
+        init_s=f"{time.perf_counter() - t0:.3f}", reduced="none")
+    pipe = TokenPipeline(cfg.vocab, TRAIN_T, TRAIN_B, seed=0, device=dev)
+    ps = TokenPipelineState()
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT))
+    stride = [max(1, p.numel() // 65536) for p in leaves]
+    before = [p.reshape(-1)[::s].clone() for p, s in zip(leaves, stride)]
+    for kern in kernels:
+        kern.launches = 0
+    rows, times = [], []
+    for i in range(1 + TRAIN_TIMED):
+        batch, ps = pipe.next_batch(ps)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])           # the step ends when its loss is read
+        times.append(time.perf_counter() - t)
+        rows.append((loss, float(m["grad_norm"]), float(m["lr"])))
+        say("train", step=i, timed=i > 0, loss=f"{loss:.6f}", grad_norm=f"{rows[-1][1]:.6f}",
+            lr=f"{rows[-1][2]:.4e}", ms=f"{times[-1] * 1e3:.3f}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {kern.name: kern.launches for kern in kernels}
+    p50 = statistics.median(times[1:])
+    fl = train_flops(cfg, TRAIN_B, TRAIN_T)
+    say("train", timed_steps=TRAIN_TIMED, batch=TRAIN_B, seq=TRAIN_T,
+        tokens_per_step=TRAIN_B * TRAIN_T, step_ms_p50=f"{p50 * 1e3:.3f}",
+        step_ms_min=f"{min(times[1:]) * 1e3:.3f}", step_ms_max=f"{max(times[1:]) * 1e3:.3f}",
+        warmup_step_ms=f"{times[0] * 1e3:.3f}",
+        tokens_per_s=f"{TRAIN_B * TRAIN_T / p50:.1f}",
+        model_tflops=f"{fl['total'] / p50 / 1e12:.2f}",
+        bf16_peak_share=f"{fl['total'] / p50 / BF16_FLOPS:.4f}",
+        flop_bound_ms=f"{fl['total'] / BF16_FLOPS * 1e3:.3f}", peak_bytes=peak)
+    say("train", flop_count=json.dumps({k: f"{v:.4e}" for k, v in fl.items()}),
+        counted="6*N*P (P non-embedding, lm head in) + remat 2*N*P_layers + attention "
+                "4*B*H*hd*causal pairs x (fwd, recompute, 2 bwd)")
+    check(all(math.isfinite(v) for r in rows for v in r[:2]),
+          f"a [train] loss or grad norm is not finite: {rows}")
+    moved = [not torch.equal(p.reshape(-1)[::s], b) for p, s, b in zip(leaves, stride, before)]
+    check(all(moved), f"{moved.count(False)} leaves did not move in {1 + TRAIN_TIMED} steps")
+    check(not any(launches.values()), f"training launched a query kernel: {launches}")
+    say("train", check="every loss and grad norm finite, every leaf moved",
+        leaves_moved=sum(moved), query_kernel_launches=json.dumps(launches))
+
+    def one_step():
+        b, _ = pipe.next_batch(ps)
+        step(state, b)
+    busy = profile_batches(torch, one_step, p50, n_prof=1, path="train", batch=TRAIN_B)
+    kinds = {}
+    for name, us in busy.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us / 1e3
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
+    say("train", device_ms_by_kind=json.dumps({k: round(v, 3) for k, v in
+                                               sorted(kinds.items(), key=lambda kv: -kv[1])}))
+    say("train", top_kernels_ms=json.dumps([[n.replace("void at::native::", "")[:110],
+                                             round(us / 1e3, 3)] for n, us in top]))
+    del state, step, before, leaves, batch
+    torch.cuda.empty_cache()
+
+
+def train_fp32_check(torch, dev):
+    """h2o-danube-1.8b at full width, 2 layers, float32 (about 0.30 G
+    parameters), B = 1, T = 256: one step on the card and the same step on
+    the CPU from the same parameters (loss, grad norm, every leaf's
+    gradient), TF32 off; on the card remat "full" vs "none", and microbatch
+    0 vs 1 at B = 2."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, TrainState, init_opt_state,
+                                      loss_and_grads, make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    opt = AdamWConfig(**TRAIN_OPT)
+    gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on for float32 products")
+    params = gpu.init(torch.Generator(dev).manual_seed(1))
+    cparams = tree_cpu(params)
+
+    def clone(t):
+        return {k: clone(v) for k, v in t.items()} if isinstance(t, dict) else t.clone()
+
+    def state_of(p):
+        """A fresh TrainState on a copy of p (a step updates it in place)."""
+        q = clone(p)
+        return TrainState(params=q, opt=init_opt_state(q),
+                          step=torch.zeros((), dtype=torch.int32, device=q["embed"]["table"].device))
+
+    batch, _ = TokenPipeline(cfg.vocab, 256, 1, seed=1, device=dev).next_batch(
+        TokenPipelineState())
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    lg, gg = loss_and_grads(gpu, params, batch)
+    lc, gc = loss_and_grads(cpu, cparams, cbatch)
+    _, mg = make_train_step(gpu, opt)(state_of(params), batch)
+    _, mc = make_train_step(cpu, opt)(state_of(cparams), cbatch)
+    errs = grad_errors(gg, gc)
+    worst = max(errs, key=errs.get)
+    d_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+    d_gn = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) / float(mc["grad_norm"])
+    d_sl = abs(float(mg["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+    say("train", check="fp32 full width, 2 layers: card vs CPU", params=Model.param_count(params),
+        batch=1, seq=256, loss=f"{float(lg):.6f}", loss_rel_diff=f"{d_loss:.3e}",
+        step_loss_rel_diff=f"{d_sl:.3e}", grad_norm_rel_diff=f"{d_gn:.3e}",
+        loss_rtol=TRAIN_LOSS_RTOL, worst_leaf=worst, worst_grad_err=f"{errs[worst]:.3e}",
+        grad_tol=TRAIN_GRAD_TOL, seconds=f"{time.perf_counter() - t0:.3f}")
+    check(max(d_loss, d_sl, d_gn) <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL,
+          f"the fp32 step on the card differs from the CPU's: loss {d_loss}, grad norm "
+          f"{d_gn}, {worst} {errs[worst]}")
+
+    # remat "full" against "none", on the card
+    none = Model(dataclasses.replace(cfg, remat="none"), device=dev)
+    ln, gn = loss_and_grads(none, params, batch)
+    errs = grad_errors(gg, gn)
+    worst = max(errs, key=errs.get)
+    d_loss = abs(float(lg) - float(ln)) / abs(float(ln))
+    say("train", check="remat full vs none, card, fp32", remat=cfg.remat,
+        loss_rel_diff=f"{d_loss:.3e}", worst_leaf=worst, worst_grad_err=f"{errs[worst]:.3e}",
+        loss_rtol=TRAIN_LOSS_RTOL, grad_tol=TRAIN_GRAD_TOL)
+    check(cfg.remat == "full" and d_loss <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL,
+          f"remat full differs from none: loss {d_loss}, {worst} {errs[worst]}")
+    del gn, gc, cparams
+
+    # microbatch 0 against 1 at B = 2, on the card
+    b2, _ = TokenPipeline(cfg.vocab, 256, 2, seed=2, device=dev).next_batch(TokenPipelineState())
+    s0, m0 = make_train_step(gpu, opt, microbatch=0)(state_of(params), b2)
+    s1, m1 = make_train_step(gpu, opt, microbatch=1)(state_of(params), b2)
+    d_loss = abs(float(m0["loss"]) - float(m1["loss"])) / abs(float(m0["loss"]))
+    d_gn = abs(float(m0["grad_norm"]) - float(m1["grad_norm"])) / float(m0["grad_norm"])
+    lr = float(m0["lr"])
+    dp = max(float((a - b).abs().max()) for a, b in
+             zip(tree_leaves(s0.params), tree_leaves(s1.params)))
+    say("train", check="microbatch 1 vs 0, card, fp32, B=2", loss_rel_diff=f"{d_loss:.3e}",
+        grad_norm_rel_diff=f"{d_gn:.3e}", rtol=TRAIN_LOSS_RTOL, max_param_diff=f"{dp:.3e}",
+        param_bound=f"2*lr={2 * lr:.3e}")
+    check(max(d_loss, d_gn) <= TRAIN_LOSS_RTOL and dp <= 2 * lr + 1e-6,
+          f"microbatch 1 differs from 0: loss {d_loss}, grad norm {d_gn}, params {dp}")
+    del params, gg, s0, s1
+    torch.cuda.empty_cache()
+
+
+def train_reduced_phase(torch, dev):
+    """[train_reduced]: every arch at its reduced config, one step on the
+    card and on the CPU from the same parameters: the loss and the step's
+    grad norm at 1e-5 relative, every leaf's gradient at 2e-4 of its max."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, TrainState, init_opt_state, loss_and_grads,
+                                      make_train_step)
+    import numpy as np
+
+    def state_of(p, device):
+        return TrainState(params=p, opt=init_opt_state(p),
+                          step=torch.zeros((), dtype=torch.int32, device=device))
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, reduced=True)
+        gpu, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+        params = gpu.init(torch.Generator(dev).manual_seed(0))
+        cparams = tree_cpu(params)
+        cbatch, _ = TokenPipeline(cfg.vocab, 32, 2, seed=3, device="cpu").next_batch(
+            TokenPipelineState())
+        if cfg.family == "encdec":
+            cbatch["frames"] = torch.from_numpy(np.random.default_rng(3).normal(
+                size=(2, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+        batch = {k: v.to(dev) for k, v in cbatch.items()}
+        lg, gg = loss_and_grads(gpu, params, batch)
+        lc, gc = loss_and_grads(cpu, cparams, cbatch)
+        errs = grad_errors(gg, gc)
+        worst = max(errs, key=errs.get)
+        _, mg = make_train_step(gpu, AdamWConfig())(state_of(params, dev), batch)
+        _, mc = make_train_step(cpu, AdamWConfig())(state_of(cparams, "cpu"), cbatch)
+        d_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+        d_gn = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) / float(mc["grad_norm"])
+        say("train_reduced", arch=arch, family=cfg.family, loss=f"{float(lc):.6f}",
+            loss_rel_diff=f"{d_loss:.3e}", grad_norm_rel_diff=f"{d_gn:.3e}",
+            rtol=TRAIN_LOSS_RTOL, worst_leaf=worst, worst_grad_err=f"{errs[worst]:.3e}",
+            grad_tol=TRAIN_REDUCED_GRAD_TOL)
+        check(max(d_loss, d_gn) <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_REDUCED_GRAD_TOL,
+              f"{arch}: the card's step differs from the CPU's: loss {d_loss}, grad norm "
+              f"{d_gn}, {worst} {errs[worst]}")
+
+
+def train_dp_phase(torch, dev):
+    """[train_dp]: a one-rank nccl group on the card. make_dp_train_step
+    without compression equals make_train_step; compressed_psum of a card
+    tensor equals its plain quantise/dequantise formula."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, compressed_psum, init_train_state,
+                                      make_dp_train_step, make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        cfg = get_config(TRAIN_ARCH, reduced=True)
+        model = Model(cfg, device=dev)
+        batch, _ = TokenPipeline(cfg.vocab, 64, 4, seed=4, device=dev).next_batch(
+            TokenPipelineState())
+        opt = AdamWConfig(**TRAIN_OPT)
+        sa, ma = make_train_step(model, opt)(
+            init_train_state(model, torch.Generator(dev).manual_seed(0)), batch)
+        out = {}
+        for compress in (False, True):
+            sb, mb = make_dp_train_step(model, opt, compress=compress)(
+                init_train_state(model, torch.Generator(dev).manual_seed(0)), batch)
+            out[compress] = (
+                abs(float(ma["loss"]) - float(mb["loss"])) / abs(float(ma["loss"])),
+                abs(float(ma["grad_norm"]) - float(mb["grad_norm"])) / float(ma["grad_norm"]),
+                max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(sa.params), tree_leaves(sb.params))))
+        lr = float(ma["lr"])
+        x = torch.randn(4096, 257, generator=torch.Generator(dev).manual_seed(5), device=dev)
+        scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+        want = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8).float() * scale
+        got = compressed_psum(x)
+        exact = bool(torch.equal(got, want))
+        say("train_dp", backend=dist.get_backend(), world=dist.get_world_size(),
+            uncompressed_vs_train_step=json.dumps(
+                dict(zip(("loss_rel", "grad_norm_rel", "max_param_diff"), out[False]))),
+            compressed_vs_train_step=json.dumps(
+                dict(zip(("loss_rel", "grad_norm_rel", "max_param_diff"), out[True]))),
+            param_bound=f"2*lr={2 * lr:.3e}", rtol=TRAIN_LOSS_RTOL,
+            compressed_psum_equals_formula=exact,
+            compressed_psum_max_err=f"{float((got - x).abs().max()):.3e}",
+            half_quantum=f"{float(scale) / 2:.3e}")
+        u = out[False]
+        check(u[0] <= TRAIN_LOSS_RTOL and u[1] <= TRAIN_LOSS_RTOL and u[2] <= 2 * lr + 1e-6,
+              f"make_dp_train_step(compress=False) differs from make_train_step: {u}")
+        check(out[True][0] <= TRAIN_LOSS_RTOL and exact,
+              f"the compressed step or compressed_psum is off: {out[True]}, exact={exact}")
+    finally:
+        dist.destroy_process_group()
+
+
+def train_cli_phase():
+    """[train_cli]: the training entry point as a user runs it, on the card:
+    reduced h2o-danube-1.8b for 40 steps uninterrupted (A), and again (B)
+    sent SIGTERM after its step-10 line, then rerun: B checkpoints on the
+    signal, resumes from that step and ends on A's last loss."""
+    import signal
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cmd(run):
+        return [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                "--reduced", "--steps", "40", "--batch", "8", "--seq", "128", "--ckpt-dir",
+                str(root / run), "--ckpt-every", "10"]
+
+    def last_loss(lines):
+        return float([ln.split()[3] for ln in lines if ln.startswith("step ")][-1])
+
+    t0 = time.perf_counter()
+    try:
+        a = subprocess.run(cmd("A"), cwd=ROOT, capture_output=True, text=True, timeout=300,
+                           env=env)
+        for line in a.stdout.splitlines():
+            print(f"[train_cli] A: {line}", flush=True)
+        check(a.returncode == 0, f"the train CLI exited {a.returncode}: {a.stderr[-2000:]}")
+        b = subprocess.Popen(cmd("B"), cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env)
+        b_lines = []
+        try:
+            for line in b.stdout:
+                b_lines.append(line.rstrip("\n"))
+                print(f"[train_cli] B: {b_lines[-1]}", flush=True)
+                if line.startswith("step    10"):
+                    b.send_signal(signal.SIGTERM)
+            b_rc = b.wait(timeout=300)
+            b_err = b.stderr.read()
+        finally:
+            b.kill()
+        check(b_rc == 0, f"the SIGTERM'd train CLI exited {b_rc}: {b_err[-2000:]}")
+        c = subprocess.run(cmd("B"), cwd=ROOT, capture_output=True, text=True, timeout=300,
+                           env=env)
+        for line in c.stdout.splitlines():
+            print(f"[train_cli] B rerun: {line}", flush=True)
+        check(c.returncode == 0, f"the resumed train CLI exited {c.returncode}: "
+                                 f"{c.stderr[-2000:]}")
+        resumed = [ln for ln in c.stdout.splitlines() if ln.startswith("resumed from step ")]
+        la, lb = last_loss(a.stdout.splitlines()), last_loss(c.stdout.splitlines())
+        rel = abs(la - lb) / abs(la)
+        say("train_cli", sigterm=any(ln.startswith("SIGTERM:") for ln in b_lines),
+            resumed=json.dumps(resumed), last_loss_A=la, last_loss_B=lb,
+            rel_diff=f"{rel:.3e}", rtol=TRAIN_CLI_LOSS_RTOL,
+            seconds=f"{time.perf_counter() - t0:.3f}")
+        check(any(ln.startswith("SIGTERM: checkpointing") for ln in b_lines) and resumed
+              and a.stdout.splitlines()[-1] == "done" == c.stdout.splitlines()[-1],
+              "the SIGTERM'd run printed no SIGTERM line or its rerun did not resume")
+        check(rel <= TRAIN_CLI_LOSS_RTOL,
+              f"the resumed run's last loss {lb} differs from the uninterrupted {la}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database size")
@@ -1684,6 +2108,19 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     lm_reduced_phase(torch, dev)
     say("lm_reduced", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    torch.cuda.empty_cache()
+
+    # ---- [train], [train_reduced], [train_dp]: LM training on the card ------
+    t_phase = time.perf_counter()
+    train_phase(torch, dev, KERNELS)
+    train_fp32_check(torch, dev)
+    say("train", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    train_reduced_phase(torch, dev)
+    say("train_reduced", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    train_dp_phase(torch, dev)
+    say("train_dp", seconds=f"{time.perf_counter() - t_phase:.3f}")
     kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
                      l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
     for rec in record:
@@ -1702,6 +2139,11 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     lm_cli_phase()
     say("lm_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # ---- [train_cli]: the training entry point in processes of its own ------
+    t_phase = time.perf_counter()
+    train_cli_phase()
+    say("train_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": record}), flush=True)

@@ -25,4 +25,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=96, n_heads=6, n_kv=2, d_ff=192,
-        vocab=256, dtype="float32")
+        vocab=256, dtype="float32", remat="none")

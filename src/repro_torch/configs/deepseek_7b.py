@@ -21,4 +21,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv=4, d_ff=160,
-        vocab=256, dtype="float32")
+        vocab=256, dtype="float32", remat="none")

@@ -27,4 +27,4 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=64,
         moe_d_ff=64, moe_experts=8, moe_top_k=4, vocab=256,
-        dtype="float32")
+        dtype="float32", remat="none")

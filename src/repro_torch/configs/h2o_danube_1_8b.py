@@ -23,4 +23,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=160,
-        vocab=256, swa_window=32, dtype="float32")
+        vocab=256, swa_window=32, dtype="float32", remat="none")

@@ -24,4 +24,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, vocab=256, ssm_state=16,
-        ssm_head_dim=16, ssm_chunk=32, dtype="float32")
+        ssm_head_dim=16, ssm_chunk=32, dtype="float32", remat="none")

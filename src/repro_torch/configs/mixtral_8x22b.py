@@ -26,4 +26,4 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
         moe_d_ff=128, moe_experts=4, moe_top_k=2, vocab=256, swa_window=32,
-        dtype="float32")
+        dtype="float32", remat="none")

@@ -26,4 +26,4 @@ def reduced() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, n_layers=2, enc_layers=2, enc_frames=16, d_model=64,
-        n_heads=4, n_kv=4, d_ff=128, vocab=256, dtype="float32")
+        n_heads=4, n_kv=4, d_ff=128, vocab=256, dtype="float32", remat="none")

@@ -29,4 +29,4 @@ def reduced() -> ArchConfig:
     return dataclasses.replace(
         CONFIG, n_layers=4, d_model=64, n_heads=4, n_kv=4, d_ff=128,
         vocab=256, ssm_state=16, ssm_head_dim=16, ssm_chunk=32,
-        shared_attn_every=2, dtype="float32")
+        shared_attn_every=2, dtype="float32", remat="none")

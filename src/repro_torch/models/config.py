@@ -4,10 +4,11 @@
 One frozen dataclass describes every family (dense / moe / ssm / hybrid /
 encdec); ``repro_torch/configs/<id>.py`` instantiates the exact published
 numbers and provides ``reduced()`` for CPU tests. ``activation_dtype`` is a
-torch dtype. The reference's execution fields (``remat``, ``scan_layers``,
-``max_seq``) and its sharding levers (``bf16_compute_weights``,
-``moe_shard_capacity``) steer XLA's compilation and GSPMD; nothing here
-reads them, so they are not fields.
+torch dtype. ``remat`` steers activation checkpointing in a training
+forward (``models/stack.py:remat``). The reference's other execution fields
+(``scan_layers``, ``max_seq``) and its sharding levers
+(``bf16_compute_weights``, ``moe_shard_capacity``) steer XLA's compilation
+and GSPMD; nothing here reads them, so they are not fields.
 """
 from __future__ import annotations
 
@@ -74,6 +75,7 @@ class ArchConfig:
     enc_frames: int = 1500
     # numerics: activations (weights are fp32 masters cast at each use)
     dtype: str = "bfloat16"
+    remat: str = "full"    # none | full | dots: what a training forward saves
 
     # ---- derived -----------------------------------------------------------
     @property

@@ -17,7 +17,7 @@ import torch
 
 from . import layers as L
 from .config import ArchConfig
-from .stack import embed_tokens, tree_index
+from .stack import embed_tokens, remat, unstack
 
 __all__ = ["init_encdec_params", "encode", "decode_forward", "init_encdec_cache",
            "EncDecCache"]
@@ -62,23 +62,30 @@ def encode(params, frames, cfg: ArchConfig):
     T = frames.shape[1]
     pos = L.sincos_positions(torch.arange(T, device=frames.device), cfg.d_model, dtype=dt)
     x = frames.to(dt) + pos[None]
-    for i in range(cfg.enc_layers):
-        lp = tree_index(params["enc_layers"], i)
-        h = L.norm_apply(lp["norm1"], x, cfg)
-        q, k, v = (torch.einsum("btd,dhk->bthk", h, lp["attn"][w].to(dt))
-                   for w in ("wq", "wk", "wv"))
-        if cfg.attn_bias:
-            q = q + lp["attn"]["bq"].to(dt)
-            k = k + lp["attn"]["bk"].to(dt)
-            v = v + lp["attn"]["bv"].to(dt)
-        out = L.flash_attention(q, k, v, causal=False)
-        y = torch.einsum("bthk,hkd->btd", out, lp["attn"]["wo"].to(dt))
-        if cfg.attn_bias:
-            y = y + lp["attn"]["bo"].to(dt)
-        x = x + y
-        g = L.norm_apply(lp["norm2"], x, cfg)
-        x = x + L.mlp_apply(lp["mlp"], g, cfg)
+    # as the reference, checkpointed whenever cfg.remat asks (encode has no
+    # mode); remat() skips it when no graph is recorded
+    layer = remat(_encoder_layer, cfg, "train")
+    for lp in unstack(params["enc_layers"]):
+        x = layer(lp, x, cfg)
     return L.norm_apply(params["enc_norm"], x, cfg)
+
+
+def _encoder_layer(lp, x, cfg: ArchConfig):
+    dt = x.dtype
+    h = L.norm_apply(lp["norm1"], x, cfg)
+    q, k, v = (torch.einsum("btd,dhk->bthk", h, lp["attn"][w].to(dt))
+               for w in ("wq", "wk", "wv"))
+    if cfg.attn_bias:
+        q = q + lp["attn"]["bq"].to(dt)
+        k = k + lp["attn"]["bk"].to(dt)
+        v = v + lp["attn"]["bv"].to(dt)
+    out = L.flash_attention(q, k, v, causal=False)
+    y = torch.einsum("bthk,hkd->btd", out, lp["attn"]["wo"].to(dt))
+    if cfg.attn_bias:
+        y = y + lp["attn"]["bo"].to(dt)
+    x = x + y
+    g = L.norm_apply(lp["norm2"], x, cfg)
+    return x + L.mlp_apply(lp["mlp"], g, cfg)
 
 
 def _cross_kv(lp, enc_out, cfg):
@@ -117,28 +124,30 @@ def decode_forward(params, tokens, enc_out, cfg: ArchConfig, *, mode="train",
     else:
         x = x + L.sincos_positions(torch.arange(T, device=dev), cfg.d_model, dtype=dt)[None]
     precomp = cache is not None and enc_out is None
-    ac_new, ck_new, cv_new = [], [], []
-    for i in range(cfg.n_layers):
-        lp = tree_index(params["dec_layers"], i)
-        ac = cache.self_attn[i] if cache is not None else None
+
+    def layer(lp, x, ac, kv):
         h = L.norm_apply(lp["norm1"], x, cfg)
         y, ac = L.attn_apply(lp["self_attn"], h, cfg, mode=mode, use_rope=False, cache=ac)
         x = x + y
         # cross attention
         hx = L.norm_apply(lp["norm_x"], x, cfg)
-        if precomp:
-            k, v = cache.cross_k[i], cache.cross_v[i]
-        else:
-            k, v = _cross_kv(lp, enc_out, cfg)
+        k, v = kv if kv is not None else _cross_kv(lp, enc_out, cfg)
         mask = torch.ones((B, k.shape[1]), dtype=torch.bool, device=dev)
         y, _ = L.attn_apply(lp["cross_attn"], hx, cfg, mode=mode, use_rope=False,
                             kv_override=(k, v, mask))
         x = x + y
         g = L.norm_apply(lp["norm2"], x, cfg)
-        x = x + L.mlp_apply(lp["mlp"], g, cfg)
-        ac_new.append(ac)
-        ck_new.append(k.to(dt))
-        cv_new.append(v.to(dt))
+        return x + L.mlp_apply(lp["mlp"], g, cfg), ac, k, v
+
+    layer = remat(layer, cfg, mode)
+    ac_new, ck_new, cv_new = [], [], []
+    for i, lp in enumerate(unstack(params["dec_layers"])):
+        x, ac, k, v = layer(lp, x, cache.self_attn[i] if cache is not None else None,
+                            (cache.cross_k[i], cache.cross_v[i]) if precomp else None)
+        if cache is not None:
+            ac_new.append(ac)
+            ck_new.append(k.to(dt))
+            cv_new.append(v.to(dt))
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = x @ params["embed"]["table"].to(x.dtype).T
     new_cache = None

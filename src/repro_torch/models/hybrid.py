@@ -18,7 +18,7 @@ import torch
 from . import layers as L
 from . import mamba2 as M2
 from .config import ArchConfig
-from .stack import embed_tokens, init_lm_head, lm_logits, tree_index
+from .stack import embed_tokens, init_lm_head, lm_logits, remat, unstack
 
 __all__ = ["init_hybrid_params", "hybrid_forward", "init_hybrid_cache", "HybridCache"]
 
@@ -82,21 +82,26 @@ def hybrid_forward(params, tokens, cfg: ArchConfig, *, mode="train",
     positions = None      # decode takes its position from the cache
     if mode != "decode":
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
-    ng, gs = _groups(cfg)
-    sc_new, ac_new = [], []
-    for g in range(ng):
-        gp = tree_index(params["mamba"], g)
-        group_sc = []
-        for i in range(gs):
-            lp = tree_index(gp, i)
-            sc = cache.ssm[g][i] if cache is not None else None
+
+    def group(gp, shared, x, group_sc, ac):
+        """One group: its backbone layers, then the shared block."""
+        sc_out = []
+        for i, lp in enumerate(unstack(gp)):
             h = L.norm_apply(lp["norm"], x, cfg)
-            y, sc = M2.mamba2_apply(lp["mamba"], h, cfg, mode=mode, cache=sc)
+            y, sc = M2.mamba2_apply(lp["mamba"], h, cfg, mode=mode,
+                                    cache=group_sc[i] if group_sc is not None else None)
             x = x + y
-            group_sc.append(sc)
-        ac = cache.attn[g] if cache is not None else None
-        x, ac = _shared_block(params["shared"], x, cfg, positions=positions, mode=mode,
-                              cache=ac)
+            sc_out.append(sc)
+        x, ac = _shared_block(shared, x, cfg, positions=positions, mode=mode, cache=ac)
+        return x, sc_out, ac
+
+    # the reference checkpoints a whole group (hybrid.py's group_body)
+    group = remat(group, cfg, mode)
+    sc_new, ac_new = [], []
+    for g, gp in enumerate(unstack(params["mamba"])):
+        x, group_sc, ac = group(gp, params["shared"], x,
+                                cache.ssm[g] if cache is not None else None,
+                                cache.attn[g] if cache is not None else None)
         sc_new.append(group_sc)
         ac_new.append(ac)
     logits = lm_logits(params, x, cfg)

@@ -7,9 +7,11 @@
     logits, cache = model.prefill(params, inputs, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-``forward_train`` is the forward pass only (no backward in the port yet).
-The reference's sharding specs (``param_specs``, ``cache_specs``) have no
-counterpart: on one card every sharding hint is the identity.
+``forward_train`` is differentiable: ``repro_torch.training`` takes its
+gradients by autograd over the fp32 master leaves, with each layer under
+activation checkpointing as ``cfg.remat`` says. The reference's sharding
+specs (``param_specs``, ``cache_specs``) have no counterpart: on one card
+every sharding hint is the identity.
 """
 from __future__ import annotations
 

@@ -3,15 +3,20 @@ port of ``repro.models.stack``).
 
 Layer parameters are stacked along a leading ``[n_layers]`` axis, as the
 reference's are; a Python loop over layers takes each layer's view
-(``tree_index``) where the reference runs ``lax.scan``. The decode cache is
-a list with one entry per layer.
+(``unstack``) where the reference runs ``lax.scan``, and ``remat`` wraps
+the loop body in activation checkpointing as the reference's
+``_maybe_remat`` wraps the scanned body. The decode cache is a list with
+one entry per layer.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from . import mamba2 as M2
@@ -19,7 +24,7 @@ from . import moe as MOE
 from .config import ArchConfig
 
 __all__ = ["init_stack_params", "stack_forward", "init_stack_cache", "DecoderCache",
-           "tree_index", "embed_tokens", "lm_logits"]
+           "unstack", "remat", "embed_tokens", "lm_logits"]
 
 
 @dataclasses.dataclass
@@ -28,11 +33,42 @@ class DecoderCache:
     ssm: Optional[list]     # one M2.SSMCache per layer, or None
 
 
-def tree_index(tree, i):
-    """The i-th slice of every leaf of a nested dict (a view, no copy)."""
+def unstack(tree):
+    """The per-layer views of a nested dict of stacked leaves: a list with
+    one dict per index of the leading axis. Each leaf is split once by
+    ``unbind(0)``, so under autograd its gradient is stacked once (one
+    ``UnbindBackward``), where indexing each layer would build and sum one
+    zero tensor of the whole stacked leaf per layer."""
     if isinstance(tree, dict):
-        return {k: tree_index(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep the products' outputs, recompute the
+    rest (the reference saves its dots, ``checkpoint_dots_with_no_batch_dims``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, cfg: ArchConfig, mode: str):
+    """``fn`` under activation checkpointing when a training forward records
+    a graph: ``"full"`` saves only ``fn``'s inputs and recomputes its body
+    in the backward, ``"dots"`` also saves the products' outputs. Outside
+    training, without grad, or at ``"none"``, ``fn`` itself."""
+    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        contexts = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_products)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=contexts)
+    raise ValueError(f"remat={cfg.remat!r}; expected none, full or dots")
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +147,11 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *, device
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
-    return params["embed"]["table"][tokens.long()].to(cfg.activation_dtype)
+    """The table's rows for ``tokens``, in the activation dtype. The lookup
+    is ``F.embedding``: its backward sums each row's gradient in a fixed
+    order, where indexing's (an accumulating ``index_put_``) does not on a
+    multi-threaded CPU."""
+    return F.embedding(tokens.long(), params["embed"]["table"]).to(cfg.activation_dtype)
 
 
 def lm_logits(params, x, cfg: ArchConfig):
@@ -131,13 +171,13 @@ def stack_forward(params, tokens, cfg: ArchConfig, *, mode="train",
     if cfg.family != "ssm" and mode != "decode":
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat(_block_apply, cfg, mode)
     ac_new, sc_new = [], []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(unstack(params["layers"])):
         aci = cache.attn[i] if cache is not None and cache.attn is not None else None
         sci = cache.ssm[i] if cache is not None and cache.ssm is not None else None
-        x, aci, sci, a = _block_apply(tree_index(params["layers"], i), x, cfg,
-                                      positions=positions, mode=mode, attn_cache=aci,
-                                      ssm_cache=sci)
+        x, aci, sci, a = block(lp, x, cfg, positions=positions, mode=mode, attn_cache=aci,
+                               ssm_cache=sci)
         aux = aux + a
         ac_new.append(aci)
         sc_new.append(sci)

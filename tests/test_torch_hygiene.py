@@ -41,7 +41,8 @@ def test_port_runs_without_importing_jax():
 
 def test_port_sources_never_import_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "retrieval_decode_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "retrieval_decode_torch.py",
+        ROOT / "examples" / "train_lm_torch.py"]
     assert len(files) > 10
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}
@@ -230,4 +231,72 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(serve, "get_config", lambda *a, **k: made.append(a))
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         serve.main(["--mode", "lm", "--arch", "deepseek-7b", "--reduced", "--steps", "2"])
+    assert not made
+
+
+_TRAIN_SCRIPT = """
+import sys, tempfile
+import torch
+import repro_torch.checkpoint, repro_torch.data, repro_torch.training
+import repro_torch.launch.train
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.data import TokenPipeline, TokenPipelineState
+from repro_torch.models import Model
+from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+cfg = get_config("h2o-danube-1.8b", reduced=True)
+model = Model(cfg, device="cpu")
+state = init_train_state(model, torch.Generator().manual_seed(0))
+batch, _ = TokenPipeline(cfg.vocab, 16, 2, device="cpu").next_batch(TokenPipelineState())
+state, m = make_train_step(model, AdamWConfig())(state, batch)
+assert torch.isfinite(m["loss"]) and int(state.step) == 1, m
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(d, async_save=False).save(1, state)
+    back, meta = CheckpointManager(d).restore(1, state, device="cpu")
+assert meta["step"] == 1 and torch.equal(back.params["embed"]["table"],
+                                         state.params["embed"]["table"])
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print("ok")
+"""
+
+
+def test_training_runs_without_importing_jax():
+    """``repro_torch.training``, ``repro_torch.checkpoint``, ``repro_torch.data``
+    and ``repro_torch.launch.train`` import, take a CPU step and checkpoint
+    it with neither JAX nor the reference loaded."""
+    out = subprocess.run([sys.executable, "-c", _TRAIN_SCRIPT], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """TokenPipeline, init_train_state's model, CheckpointManager.restore and
+    ``launch.train`` without ``--device`` run on the card by default;
+    without one they raise before doing any work on the host."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.training import init_train_state
+
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    if torch.cuda.is_available():
+        assert TokenPipeline(cfg.vocab, 8, 2).device.type == "cuda"
+        return
+    state = init_train_state(Model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(1, state)
+    for call in (lambda: TokenPipeline(cfg.vocab, 8, 2),
+                 lambda: init_train_state(Model(cfg), torch.Generator()),
+                 lambda: mgr.restore(1, state)):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    made = []
+    monkeypatch.setattr(train, "get_config", lambda *a, **k: made.append(a))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--steps", "2"])
     assert not made

@@ -30,7 +30,7 @@ from repro_torch.models import Model, params_from_jax
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.moe import top_k_lower_index
-from repro_torch.models.stack import tree_index
+from repro_torch.models.stack import unstack
 
 TOL = 2e-4
 SWA_TOL = 3e-4
@@ -325,7 +325,7 @@ def test_mamba2_prefill_length_error(ref):
     logits, _ = model.forward_train(params, _t(batch))
     assert logits.shape == (1, 40, cfg.vocab)
     with pytest.raises(ValueError, match="one token"):
-        M2.mamba2_apply(tree_index(params["layers"], 0)["mamba"],
+        M2.mamba2_apply(unstack(params["layers"])[0]["mamba"],
                         torch.zeros(1, 2, cfg.d_model), cfg, mode="decode",
                         cache=M2.init_ssm_cache(cfg, 1))
 

@@ -26,7 +26,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.stack import tree_index
+from repro_torch.models.stack import unstack
 from test_torch_models import TOL, _batch, _Reference, _t
 
 # bfloat16. torch rounds each bf16 silu/gelu once; XLA's CPU backend
@@ -64,7 +64,7 @@ def test_bf16_attention_block_is_bit_equal(ref, arch):
     cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="bfloat16")
     rcfg = dataclasses.replace(rmodel.cfg, dtype="bfloat16")
     rp = ref.jax.tree.map(lambda a: a[0], rparams["layers"])
-    p = tree_index(params["layers"], 0)
+    p = unstack(params["layers"])[0]
     rng = np.random.default_rng(7)
     B, T, S = 2, 44, 44
     x = rng.normal(size=(B, T, cfg.d_model)).astype(np.float32)
@@ -139,7 +139,7 @@ def test_bf16_ffn_block_matches_reference(ref, arch, monkeypatch):
     _, params = ref.port(arch)
     name = "moe" if rmodel.cfg.is_moe else "mlp"
     rp = ref.jax.tree.map(lambda a: a[0], rparams["layers"])[name]
-    p = tree_index(params["layers"], 0)[name]
+    p = unstack(params["layers"])[0][name]
     x = np.random.default_rng(8).normal(size=(2, 32, rmodel.cfg.d_model)).astype(np.float32)
     cases = ((1.0, 32), (1.25, 1)) if name == "moe" else ((1.25, 32),)
     for cf, T in cases:
