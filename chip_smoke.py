@@ -53,11 +53,20 @@ contracts:
      oracle on every row whose kernel hashes equal the plain hashes, and
      through the BatchQueue (the ``[serve]`` stream) to its direct dispatch
      bit for bit; its ``to_global()`` held leaf for leaf to a direct build
-     of the whole database under the same family; ``[srs]`` SRS (m = 8,
+     of the whole database under the same family; ``[sharded_ranks]`` the
+     same plan across 4 ``torch.distributed`` ranks on the card (each rank a
+     process of this script with ``--rank-worker``, one shard a rank, gloo
+     on ``cuda:0``), as 4 x 1 and 2 x 2 index x query grids, every result
+     field equal bit for bit to the one-process plan at 4 and 2 shards,
+     each rank's query kernels launched, its index bytes and peak memory
+     beside the one-process build's, and the ``[serve]`` stream through
+     rank 0's queue (the other ranks follow) bit for bit; ``[srs]`` SRS (m = 8,
      T' = 400, the paper harness's SIFT setting) at k = 1 and 10, its
      distances on ``l2_distance_by_id``, its index bytes beside E2LSH's,
      held on 32 queries to the host run; and ``[qalsh]`` QALSH (K = 64) on
-     16 queries at k = 1, held to the host run.
+     16 queries at k = 1, held to the host run. ``[sharded_cli]``, after
+     ``[serve_cli]``: the serve CLI under ``torch.distributed.run`` with 2
+     ranks at n = 10^5 in a subprocess, its ``[sharded x2]`` line.
   8. with the SIFT1M indexes dropped: ``[lm]`` LM serving with the retrieval
      hook at deepseek-7b's full published config (30 layers, d_model 4096,
      vocab 102,400, bf16 activations over fp32 masters; random weights from
@@ -103,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import gc
 import glob
 import json
 import math
@@ -138,6 +148,9 @@ SERVE_CACHE_ROWS = 2048     # its store's cache arena, under the warm set: the
 FIELDS = ("ids", "dists", "found", "radii_searched", "nio_table", "nio_blocks",
           "cands_checked")
 SHARDS = 4                  # [sharded]: range shards of the database on the one card
+RANK_LAYOUTS = ((4, 1), (2, 2))  # [sharded_ranks]: index x query grids of 4 ranks
+RANK_TIMEOUT_S = 420        # [sharded_ranks]: the ranks' whole run, builds included
+SHARDED_CLI_N = 100_000     # [sharded_cli]: the database of the two-rank serve CLI
 SRS_M = 8                   # [srs]: SRS's projected dimensions
 SRS_TPRIME = 400            # and its T' for SIFT, the paper harness's setting
 SRS_PARITY_Q = 32           # queries held to the same SRS run on the host
@@ -744,11 +757,12 @@ def sharded_phase(torch, dev, ds, queries, exact_dists, kernels):
     sh = build_sharded_index(ds.db, SHARDS, gamma=0.8, max_L=32, seed=0, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     p = sh.params
     cap = max(4 * K, -(-p.S // SHARDS))
     say("sharded", shards=SHARDS, m=p.m, L=p.L, r=p.r, u=p.u, S=p.S, s_cap_per_shard=cap,
         block_objs=p.block_objs, build_s=f"{build_s:.3f}", device_bytes=sh.nbytes(),
-        build_peak_bytes=torch.cuda.max_memory_allocated(),
+        build_peak_bytes=build_peak,
         device_allocated_bytes=torch.cuda.memory_allocated())
     for s, ix in enumerate(sh.arrays):
         say("sharded", shard=s, offset=sh.shard_offsets[s], n=ix.db.shape[0],
@@ -779,6 +793,10 @@ def sharded_phase(torch, dev, ds, queries, exact_dists, kernels):
     check(ratio < 1.5, f"sharded overall ratio {ratio} is not an ANN result")
     profile_batches(torch, lambda: engine.query(queries, plan="sharded", k=K),
                     statistics.median(times), plan="sharded")
+    # the one-process result [sharded_ranks] is held to, with its build's bytes
+    one_process = dict(result={f: getattr(res, f).cpu().numpy() for f in FIELDS},
+                       device_bytes=sh.nbytes(), build_peak_bytes=build_peak,
+                       p50_ms=statistics.median(times) * 1e3)
 
     # per-shard oracle bodies through the same merge
     ix0 = sh.arrays[0]
@@ -844,7 +862,253 @@ def sharded_phase(torch, dev, ds, queries, exact_dists, kernels):
     check(len(same) == len(direct_ix.array_fields()),
           f"to_global() differs from a direct build in "
           f"{sorted(set(direct_ix.array_fields()) - set(same))}")
-    return launches, queue_launches
+    return launches, queue_launches, one_process
+
+
+def rank_worker(cfg: dict) -> int:
+    """One rank of [sharded_ranks], in a process of its own (``chip_smoke.py
+    --rank-worker CONFIG``): join the group as the serve CLI's ranks do
+    (``launch.serve.join_ranks``), then run each index x query layout
+    (``rank_layout_run``). Rank 0 prints one JSON line a layout with every
+    rank's record."""
+    import numpy as np
+    faulthandler.dump_traceback_later(RANK_TIMEOUT_S, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.serve import join_ranks
+
+    dev, transport = join_ranks("cuda")
+    db = np.load(cfg["db"])
+    queries_np = np.load(cfg["queries"])
+    for i, ((shards, groups), want_path) in enumerate(zip(cfg["layouts"], cfg["want"])):
+        rec = rank_layout_run(torch, dev, db, queries_np, shards, groups,
+                              np.load(want_path), with_queue=i == 0)
+        # the layout's shard, engine and queue die with its frame (the queue's
+        # leading closure is a cycle: collect it) before the next layout builds
+        gc.collect()
+        torch.cuda.empty_cache()
+        records = [None] * dist.get_world_size()
+        dist.all_gather_object(records, rec)
+        if dist.get_rank() == 0:
+            print(json.dumps(dict(layout=f"{shards}x{groups}", transport=transport,
+                                  device=str(dev), ranks=records)), flush=True)
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_layout_run(torch, dev, db, queries_np, shards, groups, want, *, with_queue):
+    """This rank's part of one layout: build its shard (the ranks in turn),
+    time the batch through ``plan="sharded"`` (counts 0 just before, read
+    just after), hold the result to the one-process result ``want`` bit for
+    bit, and with ``with_queue`` serve the [serve] stream through the
+    leader's queue (the others follow), every ticket against its direct
+    dispatch. Returns the rank's record."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.distributed import RankLayout, build_local_shard
+    from repro_torch.kernels import KERNELS
+    from repro_torch.serving import BatchQueue
+
+    rank = dist.get_rank()
+    layout = RankLayout.make(shards, groups)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # one rank builds at a time and hands its build's transient memory back:
+    # four concurrent 2 x 2 builds would peak at ~4 x 18 GB
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            t0 = time.perf_counter()
+            local = build_local_shard(db, shards, layout.shard, gamma=0.8, max_L=32, seed=0,
+                                      device=dev)
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        dist.barrier()
+    rec = dict(rank=rank, shard=layout.shard, query_group=layout.query,
+               build_s=round(build_s, 3), index_bytes=local.nbytes(),
+               build_peak_bytes=torch.cuda.max_memory_allocated(dev),
+               device_free_bytes=torch.cuda.mem_get_info(dev)[0])
+    engine = SearchEngine(local, device=dev, group=layout)
+    queries = torch.from_numpy(queries_np).to(dev)
+    dist.barrier()
+    for kern in KERNELS:
+        kern.launches = 0
+    res, times = timed_runs(torch, lambda: engine.query(queries, plan="sharded", k=K))
+    rec["launches"] = {kern.name: kern.launches for kern in KERNELS}
+    rec["p50_ms"] = statistics.median(times) * 1e3
+    rec["qps"] = queries.shape[0] * len(times) / sum(times)
+    rec["fields_differing"] = [f for f in FIELDS if not np.array_equal(
+        getattr(res, f).cpu().numpy(), want[f])]
+    if with_queue:
+        order, requests = serve_stream(queries_np)
+        if rank == layout.leader:
+            queue = BatchQueue(engine, plan="sharded", k=K, ladder=SERVE_LADDER,
+                               max_batch=SERVE_LADDER[-1], tick_us=200.0)
+            t0 = time.perf_counter()
+            with queue:
+                tickets = [queue.submit(r) for r in requests]
+                got = [t.result(timeout=120) for t in tickets]
+            t_queued = time.perf_counter() - t0
+            queue.close()
+            s = queue.stats_summary()
+            rec["queue"] = dict(ticks=s["ticks"], dispatches=s["dispatches"],
+                                rows=s["rows_served"], dispatch_p50_ms=s["p50_dispatch_ms"],
+                                queued_qps=s["rows_served"] / t_queued)
+        else:
+            rec["follower_calls"] = BatchQueue.follow(engine, plan="sharded", k=K)
+        _, direct_fn = engine.make_plan_fn(plan="sharded", k=K)
+        direct, t_direct = timed_direct(torch, direct_fn, requests)
+        if rank == layout.leader:
+            rec["queue"]["direct_qps"] = sum(r.shape[0] for r in requests) / t_direct
+            rec["queue"]["requests_differing"] = sum(
+                bool(differing(g, w)) for g, w in zip(got, direct))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return rec
+
+
+def sharded_ranks_phase(torch, dev, ds, queries, one4, kernels):
+    """[sharded_ranks]: the sharded plan across 4 ``torch.distributed`` ranks
+    on the card, one shard a rank (``RankLayout``, ``build_local_shard``),
+    as 4 x 1 and 2 x 2 index x query grids, each held bit for bit to the
+    one-process ``plan="sharded"`` at as many shards (4 from [sharded], 2
+    built here). The kernels are built already, so no rank runs nvcc. The
+    ranks build in turn (a build's transient peak is ~1.8x its shard).
+    Returns every rank's launches summed (the 4 x 1 run)."""
+    import numpy as np
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.distributed import build_sharded_index
+
+    work = ROOT / "build" / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    one = {4: one4}
+    torch.cuda.reset_peak_memory_stats()
+    sh2 = build_sharded_index(ds.db, 2, gamma=0.8, max_L=32, seed=0, device=dev)
+    peak2 = torch.cuda.max_memory_allocated()
+    res2, times2 = timed_runs(torch, lambda: SearchEngine(sh2, device=dev).query(
+        queries, plan="sharded", k=K))
+    one[2] = dict(result={f: getattr(res2, f).cpu().numpy() for f in FIELDS},
+                  device_bytes=sh2.nbytes(), build_peak_bytes=peak2,
+                  p50_ms=statistics.median(times2) * 1e3)
+    del sh2, res2
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say("sharded_ranks", parent_allocated_bytes=torch.cuda.memory_allocated(),
+        parent_reserved_bytes=torch.cuda.memory_reserved(), device_free_bytes=free,
+        device_total_bytes=total)
+    np.save(work / "db.npy", ds.db)
+    np.save(work / "queries.npy", ds.queries)
+    want = []
+    for shards, _ in RANK_LAYOUTS:
+        want.append(str(work / f"want{shards}.npz"))
+        np.savez(want[-1], **one[shards]["result"])
+    cfg = json.dumps(dict(db=str(work / "db.npy"), queries=str(work / "queries.npy"),
+                          layouts=RANK_LAYOUTS, want=want))
+    world = RANK_LAYOUTS[0][0] * RANK_LAYOUTS[0][1]
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", cfg], cwd=ROOT,
+            env=env, stdout=open(work / f"rank{r}.out", "w"),
+            stderr=open(work / f"rank{r}.err", "w")))
+    try:     # a rank that fails leaves the others waiting: stop them all then
+        t_end = time.monotonic() + RANK_TIMEOUT_S + 30
+        while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+            check(time.monotonic() < t_end, "the ranks outlived their budget")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    failed = {r: (work / f"rank{r}.err").read_text() for r, p in enumerate(procs)
+              if p.returncode != 0}
+    for r, err in failed.items():   # every failed rank's own last lines
+        print(f"[sharded_ranks] rank {r} exited {procs[r].returncode}:\n{err[-2500:]}",
+              file=sys.stderr, flush=True)
+    check(not failed, f"ranks {sorted(failed)} failed (their errors above)")
+    lines = [json.loads(line) for line in (work / "rank0.out").read_text().splitlines()
+             if line.startswith("{")]
+    check(len(lines) == len(RANK_LAYOUTS), f"rank 0 reported {len(lines)} layouts")
+    say("sharded_ranks", world=world, ranks_s=f"{time.perf_counter() - t0:.3f}",
+        transport=lines[0]["transport"], device=lines[0]["device"])
+    launches = {}
+    for line in lines:
+        shards = int(line["layout"].split("x")[0])
+        ref = one[shards]
+        say("sharded_ranks", layout=line["layout"], one_process_shards=shards,
+            one_process_device_bytes=ref["device_bytes"],
+            one_process_build_peak_bytes=ref["build_peak_bytes"],
+            one_process_p50_ms=f"{ref['p50_ms']:.3f}")
+        for rec in line["ranks"]:
+            say("sharded_ranks", layout=line["layout"], rank=rec["rank"], shard=rec["shard"],
+                query_group=rec["query_group"], build_s=rec["build_s"],
+                index_bytes=rec["index_bytes"], build_peak_bytes=rec["build_peak_bytes"],
+                device_free_after_builds=rec["device_free_bytes"],
+                peak_bytes=rec["peak_bytes"], p50_ms=f"{rec['p50_ms']:.3f}",
+                qps=f"{rec['qps']:.1f}", launches=json.dumps(rec["launches"]),
+                fields_differing=json.dumps(rec["fields_differing"]))
+            check(all(rec["launches"][n] > 0 for n in QUERY_KERNELS),
+                  f"{line['layout']} rank {rec['rank']}: a query kernel never launched: "
+                  f"{rec['launches']}")
+            check(rec["launches"]["l2_distance_dense"] == 0,
+                  f"{line['layout']} rank {rec['rank']} launched the dense kernel")
+            check(not rec["fields_differing"],
+                  f"{line['layout']} rank {rec['rank']} differs from the one-process "
+                  f"plan at {shards} shards in {rec['fields_differing']}")
+            if line["layout"] == "{}x{}".format(*RANK_LAYOUTS[0]):
+                for n, c in rec["launches"].items():
+                    launches[n] = launches.get(n, 0) + c
+            q = rec.get("queue")
+            if q is not None:
+                say("sharded_ranks", layout=line["layout"], queue_ticks=q["ticks"],
+                    dispatches=q["dispatches"], rows=q["rows"],
+                    dispatch_p50_ms=f"{q['dispatch_p50_ms']:.4f}",
+                    queued_qps=f"{q['queued_qps']:.1f}", direct_qps=f"{q['direct_qps']:.1f}",
+                    requests_differing=q["requests_differing"])
+                check(q["requests_differing"] == 0,
+                      f"{q['requests_differing']} queued requests over the ranks differ from "
+                      "their direct dispatch")
+                check(q["dispatches"] == q["ticks"] and q["rows"] == SERVE_REPEAT * N_QUERIES,
+                      f"the queue over the ranks served {q}")
+        followers = [rec["follower_calls"] for rec in line["ranks"] if "follower_calls" in rec]
+        if followers:
+            lead = next(rec["queue"] for rec in line["ranks"] if "queue" in rec)
+            check(all(c == lead["dispatches"] + len(SERVE_LADDER) for c in followers),
+                  f"the followers made {followers} calls for {lead['dispatches']} ticks")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def sharded_cli_phase():
+    """[sharded_cli]: the serve CLI's multi-rank branch as a user runs it, two
+    ranks under ``torch.distributed.run`` on the card."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "repro_torch.launch.serve", "--mode", "ann",
+           "--n-points", str(SHARDED_CLI_N), "--queries", "256", "--k", "10"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = [line for line in out.stdout.splitlines()
+             if line.startswith(("[sharded x2]", "[ranks]"))]
+    say("sharded_cli", cmd=json.dumps(" ".join(cmd[1:])), rc=out.returncode,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    for line in lines:
+        print(f"[sharded_cli] {line}", flush=True)
+    check(out.returncode == 0, f"the two-rank serve CLI exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    ratio = [float(line.split("ratio=")[1].split()[0]) for line in lines
+             if line.startswith("[sharded x2]")]
+    check(len(ratio) == 1 and ratio[0] < 1.5 and any("transport=" in line for line in lines),
+          f"the two-rank serve CLI printed no [sharded x2] result: {out.stdout}")
 
 
 def srs_phase(torch, dev, ds, queries, exact_dists, e2lsh_bytes, kernels):
@@ -1216,11 +1480,13 @@ def lm_kernel_checks(torch, dev, idx, hn, flush):
     r, L, m, _ = ix.a.shape
     t_h = median_ms(torch, lambda: lsh_hash_all_radii(hn, ix.a, ix.b, ix.rm, **hkw, pack=pack),
                     flush=flush)
+    a2 = ix.a.reshape(r * L * m, D)
+    t_y = median_ms(torch, lambda: hn @ a2.T, flush=flush)
     b_h, by_h = hash_bound_ms(Q, D, r, L, m)
     say("lm", kernel="lsh_hash", Q=Q, D=D, r=r, L=L, m=m, hashes=same.numel(),
         clear_of_boundary=int(safe.sum()), disagree_clear=bad,
         flips_near_boundary=int((~safe & ~same).sum()), ms=f"{t_h:.4f}",
-        bound_ms=f"{b_h:.4f}", bound_by=by_h)
+        yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_h:.4f}", bound_by=by_h)
     check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree at D={D}")
     queries, qnorm2 = tq._prep_queries(hn)
     cnt_all, head_all, qfp_all = tq.hash_stage(ix, queries, cfg)
@@ -1247,11 +1513,18 @@ def lm_kernel_checks(torch, dev, idx, hn, flush):
                                                          qnorm2), flush=flush)
         b_p, by_p = probe_bound_ms(rows, Q, L, ix.ids_blocks.shape[1], pkw["sbuf"])
         b_d, by_d = by_id_bound_ms(n_valid, Q, D, pkw["sbuf"])
+        # the library yardstick: the rows gathered by id, then one batched
+        # product with the norms folded in (as at the SIFT shape)
+        ids64 = torch.where(buf != INVALID, buf, 0).to(torch.int64)
+        base = (ix.db_norm2[ids64] + qnorm2[:, None]).unsqueeze(-1)
+        qcol = queries.unsqueeze(-1)
+        t_l = median_ms(torch, lambda: torch.baddbmm(base, ix.db[ids64], qcol, alpha=-2.0),
+                        flush=flush)
         say("lm", kernel="bucket_probe", radius=t, Q=Q, exact=exact, rows_read=rows,
             cands=int(got[1].sum()), ms=f"{t_p:.4f}", bound_ms=f"{b_p:.4f}", bound_by=by_p)
         say("lm", kernel="l2_distance_gathered", radius=t, Q=Q, D=D, valid_slots=n_valid,
             max_abs_err=f"{err:.3e}", inf_on_invalid=inf_same, ms=f"{t_d:.4f}",
-            bound_ms=f"{b_d:.4f}", bound_by=by_d)
+            library_gather_baddbmm_ms=f"{t_l:.4f}", bound_ms=f"{b_d:.4f}", bound_by=by_d)
         check(exact, f"probe_append disagrees with its plain version at D={D}, radius {t}")
         check(inf_same and bool(torch.allclose(d2, d2_p, rtol=TOL, atol=TOL)),
               f"l2_distance_by_id disagrees with its plain version at D={D}, radius {t}")
@@ -1881,7 +2154,11 @@ def main(argv=None) -> int:
     ap.add_argument("--spill-dir", default=str(ROOT / "build" / "spill"),
                     help="directory on local storage for the spill file (not a "
                          "tmpfs: /tmp may be RAM)")
+    ap.add_argument("--rank-worker", dest="rank_worker", default=None,
+                    help=argparse.SUPPRESS)   # one rank of [sharded_ranks]
     args = ap.parse_args(argv)
+    if args.rank_worker is not None:
+        return rank_worker(json.loads(args.rank_worker))
 
     # a run that outlives its budget dumps every thread's stack and exits 1
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -2085,10 +2362,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path = dict(fused=launches, exact=exact_launches)
     t_phase = time.perf_counter()
-    by_path["sharded"], by_path["sharded_queue"] = sharded_phase(
+    by_path["sharded"], by_path["sharded_queue"], one4 = sharded_phase(
         torch, dev, ds, queries, exact_dists, KERNELS)
     torch.cuda.empty_cache()
     say("sharded", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    by_path["sharded_ranks"] = sharded_ranks_phase(torch, dev, ds, queries, one4, KERNELS)
+    torch.cuda.empty_cache()
+    say("sharded_ranks", seconds=f"{time.perf_counter() - t_phase:.3f}")
     t_phase = time.perf_counter()
     by_path["srs"] = srs_phase(torch, dev, ds, queries, exact_dists, e2lsh_bytes, KERNELS)
     torch.cuda.empty_cache()
@@ -2134,6 +2415,11 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     serve_cli_phase()
     say("serve_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # ---- [sharded_cli]: the multi-rank ANN entry point, two ranks -----------
+    t_phase = time.perf_counter()
+    sharded_cli_phase()
+    say("sharded_cli", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
 
     # ---- [lm_cli]: the LM entry point in a process of its own ---------------
     t_phase = time.perf_counter()

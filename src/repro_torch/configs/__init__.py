@@ -1,8 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolves here (the port's copy of
 ``repro.configs``, the same published numbers and the same ``reduced()``).
-
-``repro.configs.common.input_specs`` (placeholder inputs for the JAX dry
-run) has no counterpart here.
+``configs.common.input_specs`` gives a shape cell's inputs as meta tensors.
 """
 from __future__ import annotations
 

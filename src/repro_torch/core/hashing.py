@@ -18,10 +18,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.lsh_hash.ref import combine_split, fmix32, true_div
+from ..kernels.lsh_hash.ref import combine_split, fmix32, lsh_hash_ref, true_div
 
-__all__ = ["HashFamily", "make_hash_family", "hash_points_radius_deterministic",
-           "fmix32"]
+__all__ = ["HashFamily", "make_hash_family", "hash_points_radius", "hash_points",
+           "hash_points_radius_deterministic", "fmix32"]
 
 
 def _uint32_bits_to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -113,3 +113,18 @@ def hash_points_radius_deterministic(family: HashFamily, x: torch.Tensor,
     bwr = family.b[t].to(torch.float64)[None] * wr
     hj = torch.floor(true_div(proj.view(-1, L, m) + bwr, wr))
     return combine_split(hj, family.rm[t][None], family.u, family.fp_bits)
+
+
+def hash_points_radius(family: HashFamily, x: torch.Tensor, t: int, radius: float):
+    """Query-time hashing of points [N, d] under radius index ``t``, with
+    float32 projections in the reference's op order (``floor((x.a + b*wR) /
+    wR)``), on x's device. Returns (bucket, fp) [N, L] int32."""
+    return lsh_hash_ref(x, family.a[t], family.b[t], family.rm[t],
+                        w_r=float(family.w) * float(radius), u=family.u,
+                        fp_bits=family.fp_bits)
+
+
+def hash_points(family: HashFamily, x: torch.Tensor, radii) -> tuple:
+    """``hash_points_radius`` under every radius: (bucket, fp) [r, N, L]."""
+    out = [hash_points_radius(family, x, t, float(radius)) for t, radius in enumerate(radii)]
+    return torch.stack([b for b, _ in out]), torch.stack([f for _, f in out])

@@ -196,6 +196,27 @@ class E2LSHIndex:
     arrays: IndexArrays
     stats: IndexStats
 
+    # -- the CSR view by its older names (the reference's legacy fields) ------
+    @property
+    def table_off(self) -> torch.Tensor:
+        return self.arrays.table_off
+
+    @property
+    def table_cnt(self) -> torch.Tensor:
+        return self.arrays.table_cnt
+
+    @property
+    def entries_id(self) -> torch.Tensor:
+        return self.arrays.entries_id
+
+    @property
+    def entries_fp(self) -> torch.Tensor:
+        return self.arrays.entries_fp
+
+    @property
+    def db(self) -> torch.Tensor:
+        return self.arrays.db
+
     # A checkpoint holds the CSR view and the layout metadata only, as the
     # reference's does: load() re-derives the block store (blockify_entries
     # reproduces it exactly) and db_norm2. Either package loads the other's.

@@ -32,7 +32,9 @@ One entry point over the plans of one single-device index:
   baseline of dispatch overhead. Same results as the oracle.
 
 Over a ``ShardedIndexArrays`` (``repro_torch.core.distributed``: the
-database range-partitioned, one sub-index per shard under a shared family):
+database range-partitioned, one sub-index per shard under a shared family),
+or over each rank's ``LocalShard`` of one across ``torch.distributed``
+ranks (``SearchEngine(local, group=layout)``; every rank calls):
 
 * ``plan="sharded"`` — the fused plan body per shard, the shards' top-k
   merged as the reference's all-gather merge does;
@@ -490,12 +492,15 @@ class SearchEngine:
 
     ``index`` is an ``E2LSHoS`` facade, an ``E2LSHIndex``, a
     ``ShardedIndexArrays`` (``repro_torch.core.distributed``: plans
-    "sharded" and "oracle") or an ``ExternalIndex`` (``repro_torch.storage``;
-    a striped one serves ``plan="sharded_external"``). ``device`` (None ->
-    cuda) is where an in-memory index's plans run; the index moves there if
-    it lies elsewhere. An external index runs on the device it was loaded
-    on. Re-blockified layouts for the ``block_objs`` timing knob are
-    memoized (per shard on a sharded index).
+    "sharded" and "oracle"), this rank's ``LocalShard`` with ``group=`` its
+    ``RankLayout`` (the same plans across ranks: every rank of the layout
+    makes every call, and each rank's registry counts it) or an
+    ``ExternalIndex`` (``repro_torch.storage``; a striped one serves
+    ``plan="sharded_external"``). ``device`` (None -> cuda) is where an
+    in-memory index's plans run; the index moves there if it lies
+    elsewhere. An external index runs on the device it was loaded on.
+    Re-blockified layouts for the ``block_objs`` timing knob are memoized
+    (per shard on a sharded index).
     """
 
     PLANS = tuple(_PLANS)
@@ -503,11 +508,16 @@ class SearchEngine:
     EXTERNAL_PLANS = ("external",)
     SHARDED_EXTERNAL_PLANS = ("sharded_external",)
 
-    def __init__(self, index, *, device=None):
+    def __init__(self, index, *, device=None, group=None):
         if hasattr(index, "index") and hasattr(index, "tier"):  # E2LSHoS
             index = index.index
         self.params: LSHParams = index.params
         self._external = self._sharded = None
+        self.group = group          # the RankLayout of a LocalShard, else None
+        if (group is not None) != (hasattr(index, "num_shards")
+                                   and hasattr(index, "shard_offset")):
+            raise ValueError("group= goes with a LocalShard (the rank's part of a "
+                             "sharded index), and a LocalShard needs it")
         if hasattr(index, "store") and hasattr(index, "blocks_head"):
             # an ExternalIndex: its block rows live on disk behind the
             # BlockStore, its resident tensors on the device it was loaded on
@@ -519,7 +529,7 @@ class SearchEngine:
             self._external_striped = hasattr(index, "num_shards")
             return
         self.device = resolve_device(device)
-        if hasattr(index, "num_shards"):      # ShardedIndexArrays
+        if hasattr(index, "num_shards"):      # ShardedIndexArrays or LocalShard
             base = self._sharded = index.to(self.device)
         else:
             base = index.arrays.to(self.device)
@@ -548,7 +558,7 @@ class SearchEngine:
     def arrays(self, block_objs: Optional[int] = None):
         """The index tensors, re-blockified (and memoized) on demand; on a
         sharded engine the per-shard ``IndexArrays`` list, every shard
-        re-blockified."""
+        re-blockified (on a rank's engine, its shard's ``IndexArrays``)."""
         if self._external is not None:
             raise ValueError(
                 "an external index keeps its block rows on disk; there is no "
@@ -619,7 +629,7 @@ class SearchEngine:
             def run(sharded, queries, cfg, valid=None):
                 return sharded_query_result(
                     sharded, queries, k=k, s_cap=s_cap, s_cap_per_shard=s_cap_per_shard,
-                    local_plan=local, valid=valid)
+                    local_plan=local, valid=valid, group=self.group)
             return (run, self._layout(block_objs),
                     self.config(k=k, s_cap=s_cap, block_objs=block_objs))
         if s_cap_per_shard is not None:

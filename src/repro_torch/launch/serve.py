@@ -16,39 +16,54 @@ serving with kNN retrieval over an E2LSHoS index, served by the port.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ann --queue \
         --shards 2 --store uring --deadline-ms 50
 
+    # the sharded plan across ranks: one range shard a rank, the merge an
+    # all-gather (with --queue: rank 0 owns the queue, the others follow)
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.serve --mode ann --n-points 20000
+
     # LM decode with the retrieval hook: each step's logits probe an index
     # over a datastore in the logits space
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch mamba2-1.3b --reduced --steps 8 --retrieval
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card and
-without that flag it raises instead of carrying on on the host. (The
-reference's multi-device ``plan="sharded"`` branch waits for a machine with
-several cards, while the sharded plan itself runs on one card through
-``repro_torch.core.distributed``.)
+without that flag it raises instead of carrying on on the host. Under
+``torch.distributed.run`` (``WORLD_SIZE`` > 1) ``--mode ann`` serves the
+sharded plan, the counterpart of the reference's multi-device branch: each
+rank builds its own shard and joins the group over ``nccl`` with one card a
+rank (``cuda:LOCAL_RANK``) where there are as many cards as ranks, and
+otherwise over ``gloo`` with every rank on ``cuda:0`` (``nccl`` refuses two
+ranks on one card); ``--device cpu`` runs over ``gloo`` on the host. Rank 0
+prints the transport and the results.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
+import os
 import pathlib
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import telemetry
 from ..configs import get_config
 from ..core import E2LSHoS, SearchEngine, measured_query, overall_ratio
+from ..core.distributed import RankLayout, build_local_shard
 from ..core.e2lshos import _sync
 from ..data import make_dataset
 from ..kernels.dispatch import resolve_device
 from ..models import Model
 from ..serving import BatchQueue, DeadlineExceeded, ServeEngine
 
-__all__ = ["main", "serve_ann", "serve_ann_queued", "serve_ann_external", "serve_lm",
-           "lm_inputs"]
+__all__ = ["main", "serve_ann", "serve_ann_queued", "serve_ann_external", "serve_ann_ranks",
+           "join_ranks", "serve_lm", "lm_inputs"]
+
+RANK_TIMEOUT_S = 300     # a collective that waits longer fails the run
 
 
 def _ragged_requests(queries: np.ndarray, *, max_batch: int, seed: int):
@@ -70,12 +85,12 @@ def serve_ann_queued(args, engine: SearchEngine, queries: np.ndarray,
     report per-tick occupancy / pad waste / dispatch p50/p99 vs the direct
     per-request baseline."""
     ladder = tuple(int(s) for s in args.ladder.split(","))
-    queue = BatchQueue(engine, plan=plan, k=args.k, ladder=ladder,
-                       max_batch=args.max_batch, tick_us=args.tick_us)
+    plan = plan or engine.default_plan
     requests = _ragged_requests(queries, max_batch=args.max_batch,
                                 seed=args.seed)
-    # direct baseline: one dispatch per request at its own shape
-    _, direct_fn = engine.make_plan_fn(plan=queue.plan, k=args.k)
+    # direct baseline: one dispatch per request at its own shape (on a
+    # multi-rank engine every rank makes these calls)
+    _, direct_fn = engine.make_plan_fn(plan=plan, k=args.k)
     for r in requests:
         direct_fn(r)                 # first sight of every request shape
     _sync(engine.device)
@@ -84,6 +99,11 @@ def serve_ann_queued(args, engine: SearchEngine, queries: np.ndarray,
         direct_fn(r)
     _sync(engine.device)
     t_direct = time.perf_counter() - t0
+    if engine.group is not None and dist.get_rank() != engine.group.leader:
+        BatchQueue.follow(engine, plan=plan, k=args.k)   # until the leader closes
+        return
+    queue = BatchQueue(engine, plan=plan, k=args.k, ladder=ladder,
+                       max_batch=args.max_batch, tick_us=args.tick_us)
 
     deadline_ms = getattr(args, "deadline_ms", None)
     t0 = time.perf_counter()
@@ -101,6 +121,7 @@ def serve_ann_queued(args, engine: SearchEngine, queries: np.ndarray,
                 pass   # shed by the QoS router; counted below
             lo = hi
     t_queued = time.perf_counter() - t0
+    queue.close()
     rows = queries.shape[0]
     s = queue.stats_summary()
     ratio = overall_ratio(
@@ -207,7 +228,69 @@ def serve_ann_external(args, ds, device: torch.device):
                   f"{r.compute_wait_ms:.1f}ms of compute wait")
 
 
+def join_ranks(device_arg) -> tuple:
+    """Join the ``torch.distributed`` group that ``torch.distributed.run``
+    describes in the environment: (device, transport). One card a rank over
+    nccl where there are as many cards as ranks; otherwise every rank on
+    ``cuda:0`` over gloo (nccl refuses two ranks on one card); gloo on the
+    host for ``device_arg="cpu"``. Without a card and without "cpu" it
+    raises. A collective that waits ``RANK_TIMEOUT_S`` fails."""
+    world = int(os.environ["WORLD_SIZE"])
+    device = resolve_device(device_arg)      # raises before any work
+    if device.type == "cpu":
+        backend = "gloo"
+    elif torch.cuda.device_count() >= world:
+        backend, device = "nccl", torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    else:
+        backend, device = "gloo", torch.device("cuda", 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    return device, backend
+
+
+def serve_ann_ranks(args, ds, device, transport):
+    """The sharded plan across the group's ranks (the counterpart of the
+    reference's multi-device branch): each rank builds its range shard of
+    the database, and one batch goes through ``plan="sharded"`` directly,
+    or with ``--queue`` the request stream through rank 0's queue."""
+    world = dist.get_world_size()
+    layout = RankLayout.make(world)
+    if layout.leader == dist.get_rank():
+        print(f"[ranks] world={world} transport={transport} device={device} "
+              f"layout={layout.shards}x{layout.query_groups} (index x query)", flush=True)
+    local = build_local_shard(ds.db, world, layout.shard, gamma=args.gamma,
+                              max_L=args.max_L, seed=args.seed, device=device)
+    engine = SearchEngine(local, device=device, group=layout)
+    if args.queue:
+        serve_ann_queued(args, engine, ds.queries, ds.gt_dists, plan="sharded")
+        return
+    engine.query(ds.queries, plan="sharded", k=args.k)    # warm: kernels, allocator
+    _sync(device)
+    t0 = time.perf_counter()
+    res = engine.query(ds.queries, plan="sharded", k=args.k)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    if layout.leader == dist.get_rank():
+        ratio = overall_ratio(res.dists.cpu().numpy(), ds.gt_dists[:, :args.k])
+        print(f"[sharded x{world}] ratio={ratio:.4f} "
+              f"nio/query={float(res.nio.float().mean()):.0f} "
+              f"t/query={dt/args.queries*1e6:.0f}us", flush=True)
+
+
 def serve_ann(args):
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.store != "ram":
+            raise ValueError("--store serves from one process; across ranks the "
+                             "sharded plan holds its shards in memory (--store ram)")
+        device, transport = join_ranks(args.device)
+        try:
+            ds = make_dataset(args.dataset, n=args.n, n_queries=args.queries,
+                              seed=args.seed)
+            serve_ann_ranks(args, ds, device, transport)
+        finally:
+            dist.destroy_process_group()
+        return
     device = resolve_device(args.device)     # raises before any work
     ds = make_dataset(args.dataset, n=args.n, n_queries=args.queries, seed=args.seed)
     if args.store != "ram":
@@ -287,7 +370,10 @@ def main(argv=None):
                     help="in-memory query execution plan: the fused kernel "
                          "path, the plain oracle, or the host-driven loop")
     ap.add_argument("--dataset", default="sift")
-    ap.add_argument("--n", type=int, default=20000)
+    ap.add_argument("--n", "--n-points", dest="n", type=int, default=20000,
+                    help="database size (spelled --n-points under torch 2.11's "
+                         "torch.distributed.run, which reads --n as an "
+                         "abbreviation of its own options)")
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--k", type=int, default=1)
     ap.add_argument("--queue", action="store_true",

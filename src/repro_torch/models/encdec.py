@@ -17,10 +17,10 @@ import torch
 
 from . import layers as L
 from .config import ArchConfig
-from .stack import embed_tokens, remat, unstack
+from .stack import attn_cache_spec, embed_tokens, remat, unstack
 
 __all__ = ["init_encdec_params", "encode", "decode_forward", "init_encdec_cache",
-           "EncDecCache"]
+           "EncDecCache", "encdec_param_specs", "encdec_cache_specs"]
 
 
 @dataclasses.dataclass
@@ -54,6 +54,29 @@ def init_encdec_params(gen, cfg: ArchConfig, *, device="cpu"):
                                     "mlp"), device),
         "final_norm": L.init_norm(cfg, device=device),
     }
+
+
+def encdec_param_specs(cfg: ArchConfig, tp_size: int = 0):
+    """Logical axes of ``init_encdec_params``'s tree (layers stacked)."""
+    attn = L.attention_specs(cfg, tp_size)
+    enc = {"norm1": L.norm_specs(cfg), "attn": attn, "norm2": L.norm_specs(cfg),
+           "mlp": L.mlp_specs(cfg)}
+    dec = {"norm1": L.norm_specs(cfg), "self_attn": attn, "norm_x": L.norm_specs(cfg),
+           "cross_attn": attn, "norm2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    return {"embed": L.embedding_specs(cfg), "enc_layers": L.stacked_specs(enc),
+            "enc_norm": L.norm_specs(cfg), "dec_layers": L.stacked_specs(dec),
+            "final_norm": L.norm_specs(cfg)}
+
+
+def encdec_cache_specs(cfg: ArchConfig, tp_size: int = 0, seq_len: int = 0):
+    """Logical axes of ``init_encdec_cache``'s tree, one spec a layer (the
+    self-attention cache has no window)."""
+    n = cfg.n_layers
+    kv_ax = "tp" if (tp_size and cfg.n_kv % tp_size == 0) else None
+    cross = ("dp", None, kv_ax, None)
+    return EncDecCache(self_attn=[attn_cache_spec(cfg, tp_size, seq_len, window=0)
+                                  for _ in range(n)],
+                       cross_k=[cross] * n, cross_v=[cross] * n)
 
 
 def encode(params, frames, cfg: ArchConfig):

@@ -18,9 +18,10 @@ import torch
 from . import layers as L
 from . import mamba2 as M2
 from .config import ArchConfig
-from .stack import embed_tokens, init_lm_head, lm_logits, remat, unstack
+from .stack import attn_cache_spec, embed_tokens, init_lm_head, lm_logits, remat, unstack
 
-__all__ = ["init_hybrid_params", "hybrid_forward", "init_hybrid_cache", "HybridCache"]
+__all__ = ["init_hybrid_params", "hybrid_forward", "init_hybrid_cache", "HybridCache",
+           "hybrid_param_specs", "hybrid_cache_specs"]
 
 
 @dataclasses.dataclass
@@ -64,6 +65,34 @@ def init_hybrid_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *, devic
              for _ in range(ng)],
         attn=[L.init_attn_cache(cfg, batch, max_seq, dtype, window=cfg.swa_window,
                                 device=device) for _ in range(ng)])
+
+
+def hybrid_param_specs(cfg: ArchConfig, tp_size: int = 0):
+    """Logical axes of ``init_hybrid_params``'s tree (mamba layers stacked
+    [n_groups, group_size])."""
+    s = {
+        "embed": L.embedding_specs(cfg),
+        "mamba": L.stacked_specs({"norm": L.norm_specs(cfg),
+                                  "mamba": M2.mamba2_specs(cfg, tp_size)}, 2),
+        "shared": {"norm1": L.norm_specs(cfg), "attn": L.attention_specs(cfg, tp_size),
+                   "norm2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)},
+        "final_norm": L.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = {"w": ("fsdp", "tp")}
+    return s
+
+
+def hybrid_cache_specs(cfg: ArchConfig, tp_size: int = 0, seq_len: int = 0):
+    """Logical axes of ``init_hybrid_cache``'s tree: [group][layer] SSM
+    caches and one attention cache a group, each the reference's stacked
+    spec without its leading axes."""
+    ng, gs = _groups(cfg)
+    return HybridCache(
+        ssm=[[M2.SSMCache(state=("dp", "tp", None, None), conv=("dp", None, "tp"), length=())
+              for _ in range(gs)] for _ in range(ng)],
+        attn=[attn_cache_spec(cfg, tp_size, seq_len, window=cfg.swa_window)
+              for _ in range(ng)])
 
 
 def _shared_block(p, x, cfg, *, positions, mode, cache):

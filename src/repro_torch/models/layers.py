@@ -24,7 +24,8 @@ __all__ = [
     "init_norm", "norm_apply", "init_embedding", "rope", "sincos_positions",
     "init_attention", "flash_attention", "decode_attention", "AttnCache",
     "init_attn_cache", "cache_update", "cache_valid_mask", "attn_apply",
-    "init_mlp", "mlp_apply", "act",
+    "init_mlp", "mlp_apply", "act", "norm_specs", "embedding_specs", "attention_specs",
+    "mlp_specs", "stacked_specs",
 ]
 
 
@@ -60,6 +61,57 @@ def norm_apply(p, x, cfg):
 # ---------------------------------------------------------------------------
 # embedding / positions
 # ---------------------------------------------------------------------------
+
+# Sharding specs: trees of logical axis names, one tuple a tensor dim
+# ("dp", "fsdp", "tp", "sp" or None), resolved against a mesh by
+# ``models.sharding.AxisRules``; the reference's trees name for name.
+
+def norm_specs(cfg):
+    s = {"scale": (None,)}
+    if cfg.norm == "layernorm":
+        s["bias"] = (None,)
+    return s
+
+
+def embedding_specs(cfg):
+    return {"table": ("tp", "fsdp")}
+
+
+def attention_specs(cfg, tp_size: int = 0):
+    """Weight specs. Head dims shard on tp when divisible, else the head
+    width takes tp (contraction-sharded); fsdp always on the other dim."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q_head_ax = "tp" if (tp_size == 0 or H % max(tp_size, 1) == 0) else None
+    kv_head_ax = "tp" if (tp_size and KV % tp_size == 0) else None
+    hd_ax = "tp" if q_head_ax is None and tp_size and hd % tp_size == 0 else None
+    kv_hd_ax = hd_ax if kv_head_ax is None else None
+    s = {"wq": ("fsdp", q_head_ax, hd_ax), "wk": ("fsdp", kv_head_ax, kv_hd_ax),
+         "wv": ("fsdp", kv_head_ax, kv_hd_ax), "wo": (q_head_ax, hd_ax, "fsdp")}
+    if cfg.use_qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    if cfg.attn_bias:
+        s["bq"] = (q_head_ax, hd_ax)
+        s["bk"] = (kv_head_ax, None)
+        s["bv"] = (kv_head_ax, None)
+        s["bo"] = (None,)
+    return s
+
+
+def mlp_specs(cfg):
+    s = {"wi": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
+    if cfg.mlp_glu:
+        s["wg"] = ("fsdp", "tp")
+    return s
+
+
+def stacked_specs(tree, n: int = 1):
+    """The specs of ``tree``'s leaves stacked under ``n`` leading layer axes
+    (never sharded)."""
+    if isinstance(tree, dict):
+        return {k: stacked_specs(v, n) for k, v in tree.items()}
+    return (None,) * n + tree
+
 
 def init_embedding(gen, cfg, *, device="cpu"):
     return {"table": _normal(gen, (cfg.vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),

@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["init_mamba2", "mamba2_apply", "init_ssm_cache", "SSMCache"]
+__all__ = ["init_mamba2", "mamba2_apply", "init_ssm_cache", "SSMCache", "mamba2_specs"]
 
 
 @dataclasses.dataclass
@@ -61,6 +61,13 @@ def init_mamba2(gen, cfg, *, lead=(), device="cpu"):
         "norm_scale": torch.ones(lead + (di,), **f32),
         "out_proj": torch.randn(lead + (di, d), generator=gen, **f32) / math.sqrt(di),
     }
+
+
+def mamba2_specs(cfg, tp_size: int = 0):
+    """Logical axes of the block's weights (heads and channels on tp)."""
+    return {"in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"), "conv_b": ("tp",),
+            "A_log": ("tp",), "D": ("tp",), "dt_bias": ("tp",), "norm_scale": ("tp",),
+            "out_proj": ("tp", "fsdp")}
 
 
 def _split_proj(zxbcdt, cfg):

@@ -9,9 +9,9 @@
 
 ``forward_train`` is differentiable: ``repro_torch.training`` takes its
 gradients by autograd over the fp32 master leaves, with each layer under
-activation checkpointing as ``cfg.remat`` says. The reference's sharding
-specs (``param_specs``, ``cache_specs``) have no counterpart: on one card
-every sharding hint is the identity.
+activation checkpointing as ``cfg.remat`` says. ``param_specs()`` and
+``cache_specs()`` return trees of *logical* axis tuples over the parameter
+and cache trees (resolved against a mesh by ``models.sharding.AxisRules``).
 """
 from __future__ import annotations
 
@@ -23,7 +23,12 @@ from . import hybrid as HY
 from . import stack as ST
 from .config import ArchConfig
 
-__all__ = ["Model"]
+__all__ = ["Model", "is_spec_leaf"]
+
+
+def is_spec_leaf(x) -> bool:
+    """A spec tree's leaf: one tuple of logical axes."""
+    return isinstance(x, tuple)
 
 
 class Model:
@@ -45,6 +50,23 @@ class Model:
         if cfg.family == "encdec":
             return ED.init_encdec_params(generator, cfg, **kw)
         return ST.init_stack_params(generator, cfg, **kw)
+
+    def param_specs(self, tp_size: int = 0):
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return HY.hybrid_param_specs(cfg, tp_size)
+        if cfg.family == "encdec":
+            return ED.encdec_param_specs(cfg, tp_size)
+        return ST.stack_param_specs(cfg, tp_size)
+
+    def cache_specs(self, tp_size: int = 0, seq_len: int = 0):
+        """``seq_len`` is the cache's ``max_seq`` (it sets the window)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return HY.hybrid_cache_specs(cfg, tp_size, seq_len)
+        if cfg.family == "encdec":
+            return ED.encdec_cache_specs(cfg, tp_size, seq_len)
+        return ST.stack_cache_specs(cfg, tp_size, seq_len)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)

@@ -17,7 +17,7 @@ import torch
 
 from .layers import act
 
-__all__ = ["init_moe", "moe_apply", "top_k_lower_index"]
+__all__ = ["init_moe", "moe_apply", "top_k_lower_index", "moe_specs"]
 
 
 def init_moe(gen, cfg, *, lead=(), device="cpu"):
@@ -34,6 +34,17 @@ def init_moe(gen, cfg, *, lead=(), device="cpu"):
     if cfg.mlp_glu:
         p["wg"] = torch.randn(lead + (E, d, ff), generator=gen, **f32) * s_in
     return p
+
+
+def moe_specs(cfg, tp_size: int = 0):
+    """Experts on tp when it divides their count (expert parallelism), else
+    each expert's hidden dim on tp."""
+    ep = "tp" if (tp_size and cfg.moe_experts % tp_size == 0) else None
+    inner_tp = None if ep == "tp" else "tp"
+    s = {"router": (None, None), "wi": (ep, "fsdp", inner_tp), "wo": (ep, inner_tp, "fsdp")}
+    if cfg.mlp_glu:
+        s["wg"] = (ep, "fsdp", inner_tp)
+    return s
 
 
 def top_k_lower_index(x, k: int):

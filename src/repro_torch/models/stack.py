@@ -24,7 +24,8 @@ from . import moe as MOE
 from .config import ArchConfig
 
 __all__ = ["init_stack_params", "stack_forward", "init_stack_cache", "DecoderCache",
-           "unstack", "remat", "embed_tokens", "lm_logits"]
+           "unstack", "remat", "embed_tokens", "lm_logits", "stack_param_specs",
+           "stack_cache_specs"]
 
 
 @dataclasses.dataclass
@@ -119,6 +120,52 @@ def _block_apply(p, x, cfg: ArchConfig, *, positions, mode, attn_cache=None,
 # ---------------------------------------------------------------------------
 # stack
 # ---------------------------------------------------------------------------
+
+def _block_specs(cfg: ArchConfig, tp_size: int):
+    if cfg.family == "ssm":
+        return {"norm1": L.norm_specs(cfg), "mamba": M2.mamba2_specs(cfg, tp_size)}
+    s = {"norm1": L.norm_specs(cfg), "attn": L.attention_specs(cfg, tp_size)}
+    if not cfg.parallel_block:
+        s["norm2"] = L.norm_specs(cfg)
+    if cfg.is_moe:
+        s["moe"] = MOE.moe_specs(cfg, tp_size)
+    else:
+        s["mlp"] = L.mlp_specs(cfg)
+    return s
+
+
+def stack_param_specs(cfg: ArchConfig, tp_size: int = 0):
+    """Logical axes of ``init_stack_params``'s tree (layers stacked)."""
+    s = {"embed": L.embedding_specs(cfg),
+         "layers": L.stacked_specs(_block_specs(cfg, tp_size)),
+         "final_norm": L.norm_specs(cfg)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = {"w": ("fsdp", "tp")}
+    return s
+
+
+def attn_cache_spec(cfg: ArchConfig, tp_size: int, seq_len: int, *, window: int):
+    """One attention site's cache: KV heads take tp when divisible, else the
+    sequence takes "sp" (flash-decoding's combine). ``window`` is the
+    cache's ring size as ``init_attn_cache`` sets it for ``seq_len``."""
+    kv_ax = "tp" if (tp_size and cfg.n_kv % tp_size == 0) else None
+    spec = ("dp", None if kv_ax == "tp" else "sp", kv_ax, None)
+    return L.AttnCache(k=spec, v=spec, length=(),
+                       window=window if (window and seq_len and window < seq_len) else 0)
+
+
+def stack_cache_specs(cfg: ArchConfig, tp_size: int = 0, seq_len: int = 0):
+    """Logical axes of ``init_stack_cache``'s tree: one spec a layer, each the
+    reference's stacked spec without its leading layer axis. ``seq_len`` is
+    the cache's ``max_seq``."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return DecoderCache(attn=None, ssm=[M2.SSMCache(
+            state=("dp", "tp", None, None), conv=("dp", None, "tp"), length=())
+            for _ in range(n)])
+    return DecoderCache(attn=[attn_cache_spec(cfg, tp_size, seq_len, window=cfg.swa_window)
+                              for _ in range(n)], ssm=None)
+
 
 def init_lm_head(gen, cfg: ArchConfig, device):
     return {"w": torch.randn((cfg.d_model, cfg.vocab), generator=gen, dtype=torch.float32,

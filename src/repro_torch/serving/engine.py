@@ -17,6 +17,14 @@ opens no other, and whole ticks are serialized. A tick's dispatch time covers
 the device's completion (one stream sync), and its result comes to the host
 in one transfer (``QueryResult.cpu``).
 
+Over a multi-rank engine (``SearchEngine(local_shard, group=layout)``, the
+sharded plan across ``torch.distributed`` ranks) the layout's leader owns
+the queue: each tick it broadcasts the padded batch and its mask to the
+other ranks and makes the one masked plan call; every other rank runs
+``BatchQueue.follow``, which receives the same broadcast and makes the same
+call, until the leader's ``close()`` sends the stop sentinel. Each rank
+issues its collectives from one thread at a time, in the same order.
+
 ``ServeEngine`` (the port of the reference's, ``src/repro/serving/engine.py``)
 runs batched LM prefill and greedy decode over ``repro_torch.models.Model``
 with an optional retrieval hook (kNN-LM style: each decode step's logits
@@ -36,6 +44,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.query import QueryResult, SearchEngine
 from ..kernels.dispatch import resolve_device
@@ -56,6 +65,30 @@ def _sync(device: torch.device) -> None:
 # --------------------------------------------------------------------------
 # Dynamic micro-batching over the query plans
 # --------------------------------------------------------------------------
+
+def _send_tick(layout, dev: torch.device, queries=None, valid=None) -> None:
+    """Leader side of a tick across ranks: the row count (-1: stop), then the
+    rows with the mask as a last column, broadcast over the layout."""
+    rows = -1 if queries is None else queries.shape[0]
+    dist.broadcast(torch.tensor([rows], dtype=torch.int64, device=dev), layout.leader,
+                   group=layout.group)
+    if queries is not None:
+        dist.broadcast(torch.cat([queries, valid.to(torch.float32)[:, None]], dim=1),
+                       layout.leader, group=layout.group)
+
+
+def _receive_tick(layout, dev: torch.device, d: int):
+    """Follower side of ``_send_tick``: (queries [Q, d], valid [Q]), or None
+    at the stop sentinel."""
+    head = torch.empty((1,), dtype=torch.int64, device=dev)
+    dist.broadcast(head, layout.leader, group=layout.group)
+    rows = int(head[0])
+    if rows < 0:
+        return None
+    body = torch.empty((rows, d + 1), dtype=torch.float32, device=dev)
+    dist.broadcast(body, layout.leader, group=layout.group)
+    return body[:, :d].contiguous(), body[:, d] > 0
+
 
 class DeadlineExceeded(RuntimeError):
     """A queued request's deadline expired before its tick could serve it;
@@ -197,6 +230,12 @@ class BatchQueue:
     ``SearchEngine`` on the card (and raises without one); pass an engine
     built with ``device="cpu"`` to serve on the host.
 
+    **Across ranks.** Over an engine with ``group=`` (a ``RankLayout``) the
+    queue is built on the layout's leader only, while every other rank of
+    the layout runs ``BatchQueue.follow(engine, plan=, k=)``; ``close()``
+    (after the last tick) releases them. Each tick is then one broadcast of
+    its rows plus the one collective plan call on every rank.
+
     Drive it synchronously (``tick()`` / ``drain()`` / ``query()``) or run
     the background loop (``start()``/``stop()``), which fires a tick every
     ``tick_us`` microseconds while requests are pending and services
@@ -236,6 +275,14 @@ class BatchQueue:
         self.plan = plan or self.engine.default_plan
         self.cfg, self._fn = self.engine.make_plan_fn(
             plan=self.plan, k=k, masked=True, **plan_kw)
+        self._layout = self.engine.group   # a RankLayout: this rank leads
+        self._closed = False
+        if self._layout is not None:
+            if dist.get_rank() != self._layout.leader:
+                raise ValueError(
+                    f"rank {dist.get_rank()} is not the layout's leader "
+                    f"({self._layout.leader}): it runs BatchQueue.follow(engine, ...)")
+            self._fn = self._leading(self._fn)
         self._d = int(self.engine.params.d)
         self._pending: deque = deque()   # _Pending segments awaiting a tick
         self._lock = threading.Lock()        # guards _pending / _seq
@@ -261,6 +308,46 @@ class BatchQueue:
             ext.collect_row_hist = True  # feed warm_cache() the probe trace
         if warmup:
             self.warmup()
+
+    # -- across ranks -------------------------------------------------------
+    def _leading(self, fn):
+        """The masked plan call on the leader of a multi-rank engine: the
+        tick's rows go to the other ranks first, then every rank calls."""
+        layout, dev = self._layout, self.engine.device
+
+        def lead(queries, valid):
+            if self._closed:
+                raise RuntimeError("the queue is closed: its follower ranks have left")
+            queries = queries.to(dev, torch.float32)
+            valid = valid.to(dev, torch.bool)
+            _send_tick(layout, dev, queries, valid)
+            return fn(queries, valid)
+        return lead
+
+    @staticmethod
+    def follow(engine: SearchEngine, *, plan: Optional[str] = None, k: int = 1,
+               **plan_kw) -> int:
+        """Run on every rank of a multi-rank engine but the leader, while the
+        leader's queue (same ``plan``, ``k`` and plan keywords) serves: each
+        tick's rows arrive by broadcast and this rank makes the same masked
+        plan call. Returns the number of calls once the leader closes."""
+        layout = engine.group
+        if layout is None or dist.get_rank() == layout.leader:
+            raise ValueError("follow() runs on the non-leading ranks of a multi-rank engine")
+        _, fn = engine.make_plan_fn(plan=plan, k=k, masked=True, **plan_kw)
+        d, calls = int(engine.params.d), 0
+        while (tick := _receive_tick(layout, engine.device, d)) is not None:
+            fn(*tick)
+            calls += 1
+        return calls
+
+    def close(self) -> None:
+        """Stop the background loop (draining what is pending); on a queue
+        over ranks, also release the follower ranks. No tick runs after."""
+        self.stop()
+        if self._layout is not None and not self._closed:
+            _send_tick(self._layout, self.engine.device)
+        self._closed = True
 
     # -- warm-up --------------------------------------------------------------
     def warmup(self) -> None:

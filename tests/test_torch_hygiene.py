@@ -300,3 +300,78 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         train.main(["--arch", "h2o-danube-1.8b", "--reduced", "--steps", "2"])
     assert not made
+
+
+_SHARDING_SCRIPT = """
+import sys
+import numpy as np
+import torch
+import repro_torch.configs.common, repro_torch.launch.mesh, repro_torch.launch.steps
+import repro_torch.models.sharding
+from repro_torch.configs import get_config
+from repro_torch.configs.common import input_specs
+from repro_torch.core.distributed import RankLayout, build_local_shard, sharded_query_result
+from repro_torch.launch.mesh import available_mesh
+from repro_torch.launch.steps import abstract_params, batch_logical, named_shardings_for
+from repro_torch.models import Model
+from repro_torch.models.sharding import AxisRules
+mesh = available_mesh()
+assert tuple(mesh.shape) == (1, 1), mesh
+cfg = get_config("deepseek-7b")
+rules, demo = AxisRules.make(mesh), []
+tree = named_shardings_for(abstract_params(cfg), Model(cfg, device="cpu").param_specs(1),
+                           mesh, rules, demo)
+assert tree["embed"]["table"].spec == ("model", "data") and not demo
+batch = input_specs(cfg, "train_4k")
+assert batch_logical(batch)["tokens"] == ("dp", None)
+db = np.random.default_rng(0).normal(size=(400, 8)).astype(np.float32)
+local = build_local_shard(db, 2, 1, max_L=4, device="cpu")
+assert local.shard_offset == 200 and local.arrays.db.shape[0] == 200
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print("ok")
+"""
+
+
+def test_sharding_layer_and_ranks_run_without_importing_jax():
+    """``models.sharding``, ``launch.mesh``, ``launch.steps``, ``configs.common``
+    and the rank-parallel half of ``core.distributed`` import and resolve
+    (a full-size parameter tree on meta tensors, a rank's local shard) with
+    neither JAX nor the reference loaded."""
+    out = subprocess.run([sys.executable, "-c", _SHARDING_SCRIPT], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_available_mesh_without_a_group_is_one_device():
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import available_mesh
+    from repro_torch.models.sharding import AxisRules
+
+    assert not dist.is_initialized()
+    mesh = available_mesh()
+    assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+    rules = AxisRules.make(mesh)
+    assert all(rules.mesh_size(ax, mesh) == 1 for ax in ("dp", "fsdp", "tp", "sp"))
+
+
+def test_multi_rank_serve_needs_a_card_unless_cpu(monkeypatch):
+    """Under ``torch.distributed.run`` (WORLD_SIZE > 1) ``--mode ann`` raises
+    without a card and without ``--device cpu``, before it joins a group or
+    makes any data; ``--store`` other than ram is refused across ranks."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        return
+    for k, v in dict(WORLD_SIZE="2", RANK="0", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    made = []
+    monkeypatch.setattr(serve, "make_dataset", lambda *a, **k: made.append(a))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        serve.main(["--mode", "ann", "--n", "100"])
+    with pytest.raises(ValueError, match="--store ram"):
+        serve.main(["--mode", "ann", "--n", "100", "--device", "cpu", "--store", "mem"])
+    assert not made and not dist.is_initialized()
