@@ -100,7 +100,23 @@ contracts:
      against 0 on the card. ``[train_reduced]``: the 10 archs at reduced
      config, one step, card against CPU. ``[train_dp]``: a one-rank nccl
      group, ``make_dp_train_step`` against ``make_train_step`` and
-     ``compressed_psum`` against its formula. ``[train_cli]``, after
+     ``compressed_psum`` against its formula. Then four ranks share the
+     card over gloo on a (data 2, model 2) ``DeviceMesh`` (each a process
+     of this script with ``--mesh-worker``): ``[train_mesh]`` runs
+     build_cell's train cell of h2o-danube-1.8b at full width, 2 layers,
+     fp32, held to the one-process step on the card (each leaf's gradient
+     2e-4 of its max, the grad norm 1e-5 relative, loss 2e-5, every
+     parameter 2e-4, every leaf's placements and its shards on the card;
+     the gradient check must fail the gradients of half the batch), then
+     times the full config at MESH_TRAIN_LAYERS of its 24 layers at
+     [train]'s traffic (step ms, tokens/s, each rank's state bytes and peak
+     memory, one step's collectives by kind with their bytes);
+     ``[serve_mesh]`` holds deepseek-7b's prefill and decode cells (full
+     width, 2 layers, fp32; 2 x 64 tokens, 4 greedy steps) to one process
+     (2e-4 of the logits' max, tokens equal, caches placed by
+     ``cache_specs``); ``[train_mesh_cli]`` sends SIGTERM to
+     ``launch.train`` on 4 ranks after step 10 and resumes it on 2 (an
+     elastic restore) to a one-process run's last loss. ``[train_cli]``, after
      ``[lm_cli]``: ``python -m repro_torch.launch.train --reduced`` for 40
      steps uninterrupted, and again sent SIGTERM after its step-10 line
      and rerun: it resumes and ends on the same loss.
@@ -111,6 +127,7 @@ are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import gc
 import glob
@@ -173,6 +190,19 @@ TRAIN_LOSS_RTOL = 1e-5      # card vs CPU, fp32: the loss and the grad norm, rel
 TRAIN_GRAD_TOL = 1e-3       # card vs CPU, fp32 at full width: of each leaf's max |g|
 TRAIN_REDUCED_GRAD_TOL = 2e-4   # card vs CPU at the reduced configs (the forward's bound)
 TRAIN_CLI_LOSS_RTOL = 1e-3  # [train_cli]: resumed vs uninterrupted last loss
+MESH_SHAPE = (2, 2)         # [train_mesh], [serve_mesh]: (data, model), four ranks on cuda:0
+MESH_TIMEOUT_S = 400        # the mesh ranks' whole run
+MESH_LOSS_TOL = 2e-5        # mesh vs one process (tests/test_distributed.py's bounds)
+MESH_PARAM_TOL = 2e-4
+MESH_OPT = dict(lr=1e-3, total_steps=10)   # that test's optimizer
+MESH_GRAD_TOL = 2e-4        # mesh vs one process: each leaf's gradient, of its max |g|
+MESH_GNORM_RTOL = 1e-5      # the global grad norm, relative
+MESH_TRAIN_LAYERS = 8       # [train_mesh] timed: h2o-danube-1.8b's depth (of 24) over
+                            # gloo: ~0.94 s a layer a step, so 24 would take ~26 s a step
+MESH_TIMED = 3              # timed steps after one warm-up
+MESH_LOGIT_TOL = 2e-4       # [serve_mesh]: of the one-process logits' max |.|
+MESH_SERVE_B, MESH_SERVE_T, MESH_SERVE_STEPS = 2, 64, 4
+MESH_CLI_STEPS, MESH_CLI_SIGTERM = 20, 10   # [train_mesh_cli]
 
 
 class SmokeFailure(RuntimeError):
@@ -2148,6 +2178,494 @@ def train_cli_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the LM steps over a DeviceMesh: four ranks on the card
+# ---------------------------------------------------------------------------
+
+def mesh_phases(card: str):
+    """[train_mesh] and [serve_mesh] (one set of ranks runs both), then
+    [train_mesh_cli], each with its seconds."""
+    t_phase = time.perf_counter()
+    mesh_ranks_phase(card)
+    say("train_mesh", serve_mesh_included=True,
+        seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_phase = time.perf_counter()
+    train_mesh_cli_phase()
+    say("train_mesh_cli", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+def mesh_ranks_phase(card: str):
+    """Four ranks of ``chip_smoke.py --mesh-worker`` on the card (gloo on
+    cuda:0, joined by ``launch.serve.join_ranks``, a MESH_SHAPE mesh) run
+    [train_mesh] then [serve_mesh]; rank 0 prints one JSON line with every
+    rank's records, held here."""
+    phase = "train_mesh/serve_mesh"
+    import socket
+    work = ROOT / "build" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    conf = json.dumps({})
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker", conf], cwd=ROOT,
+            env=env, stdout=open(work / f"rank{r}.out", "w"),
+            stderr=open(work / f"rank{r}.err", "w")))
+    try:     # a rank that fails leaves the others waiting: stop them all then
+        t_end = time.monotonic() + MESH_TIMEOUT_S + 30
+        while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+            check(time.monotonic() < t_end, f"the {phase} ranks outlived their budget")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    failed = {r: (work / f"rank{r}.err").read_text() for r, p in enumerate(procs)
+              if p.returncode != 0}
+    for r, err in failed.items():
+        print(f"[{phase}] rank {r} exited {procs[r].returncode}:\n{err[-2500:]}",
+              file=sys.stderr, flush=True)
+    check(not failed, f"{phase}: ranks {sorted(failed)} failed (their errors above)")
+    lines = [json.loads(line) for line in (work / "rank0.out").read_text().splitlines()
+             if line.startswith("[")]
+    check(len(lines) == 1, f"{phase}: rank 0 reported {len(lines)} records")
+    shutil.rmtree(work, ignore_errors=True)
+    train_mesh_report(lines[0], card)
+    serve_mesh_report(lines[0], card)
+
+
+def mesh_worker(cfg: dict) -> int:
+    """One rank of [train_mesh] and [serve_mesh], in a process of its own
+    (``chip_smoke.py --mesh-worker CONFIG``): join the group as the launchers'
+    ranks do, build the (data, model) mesh (ranks sharing the card over gloo
+    run the functional collectives synchronously: ``launch.mesh``), run the
+    two phases, and gather every rank's record to rank 0, which prints them
+    as one JSON line."""
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh, sync_collectives
+    from repro_torch.launch.serve import join_ranks
+
+    dev, transport = join_ranks("cuda")
+    if transport == "gloo":
+        sync_collectives("cuda")
+    mesh = make_test_mesh(*MESH_SHAPE, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = dict(rank=dist.get_rank(), transport=transport, device=str(dev),
+               coordinate=mesh.get_coordinate())
+    rec["numerics"] = train_mesh_numerics(torch, dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["timed"] = train_mesh_timed(torch, dev, mesh)
+    rec["train_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rec["serve"] = serve_mesh_run(torch, dev, mesh)
+    rec["serve"].update(peak_bytes=torch.cuda.max_memory_allocated(dev),
+                        seconds=time.perf_counter() - t0)
+    records = [None] * dist.get_world_size()
+    dist.all_gather_object(records, rec)
+    if dist.get_rank() == 0:
+        print(json.dumps(records), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _local_bytes(leaves) -> int:
+    return sum(t.to_local().numel() * t.element_size() for t in leaves)
+
+
+def train_mesh_numerics(torch, dev, mesh) -> dict:
+    """h2o-danube-1.8b at full width, 2 layers, fp32, B = 2, T = 256, on the
+    mesh: the gradients of the loss (``loss_and_grads``, the FSDP
+    reduce-scatters included), then one step of build_cell's train cell.
+    Rank 0 holds them to the one-process gradients and step on the card
+    (each leaf's gradient, the global grad norm, the loss, every parameter
+    after the step), and reads a planted fault the gradient check must
+    catch: the one-process gradients of half the batch."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.launch.steps import (build_cell, gather_tree, place_tree, run_cell,
+                                          sharded_train_state)
+    from repro_torch.models import Model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.sharding import on_mesh
+    from repro_torch.training import (AdamWConfig, init_train_state, loss_and_grads,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    opt = AdamWConfig(**MESH_OPT)
+    model = Model(cfg, device=dev)
+    batch, _ = TokenPipeline(cfg.vocab, 256, 2, seed=1, device=dev).next_batch(
+        TokenPipelineState())
+    rank = dist.get_rank()
+    one = m1 = g1 = planted = None
+    if rank == 0:
+        s1 = init_train_state(model, torch.Generator(dev).manual_seed(0))
+        _, g1 = loss_and_grads(model, s1.params, batch)
+        _, half = loss_and_grads(model, s1.params, {k: v[:1] for k, v in batch.items()})
+        planted = grad_errors(half, g1)
+        del half
+        one, m1 = make_train_step(model, opt)(s1, batch)
+    dist.barrier()
+    cell = build_cell(cfg, "train_4k", mesh, shape=ShapeSpec("train_mesh", 256, 2, "train"),
+                      opt_cfg=opt)
+    state = sharded_train_state(model, 0, cell.in_shardings[0])
+    with on_mesh(cell.rules):
+        _, g2 = loss_and_grads(model, state.params, place_tree(batch, cell.in_shardings[1]))
+    g2 = gather_tree(g2)
+    errs = grad_errors(g2, g1) if rank == 0 else None
+    del g2, g1
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, m2 = run_cell(cell, state, batch)
+    loss = float(m2["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    want = cell.in_shardings[0]
+    leaves = tree_leaves(state.params) + tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu)
+    wants = tree_leaves(want.params) + tree_leaves(want.opt.mu) + tree_leaves(want.opt.nu)
+    rec = dict(loss=loss, step_ms=step_ms, leaves=len(leaves),
+               placements_equal=sum(tuple(a.placements) == tuple(w.placements)
+                                    for a, w in zip(leaves, wants)),
+               local_devices=sorted({a.to_local().device.type for a in leaves}
+                                    | {state.step.to_local().device.type}),
+               sharded_leaves=sum(any(p.is_shard() for p in a.placements) for a in leaves),
+               demotions=len(cell.demotions))
+    dparam = 0.0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(one.params) if one else
+                    [None] * len(leaves)):
+        full = a.full_tensor()
+        if b is not None:
+            dparam = max(dparam, float((full - b).abs().max()))
+        del full
+    if rank == 0:
+        worst, fault = max(errs, key=errs.get), max(planted, key=planted.get)
+        gn1, gn2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+        rec.update(one_process_loss=float(m1["loss"]), dloss=abs(float(m1["loss"]) - loss),
+                   dparam=dparam, params=Model.param_count(one.params),
+                   worst_leaf=worst, grad_err=errs[worst], planted_leaf=fault,
+                   planted_err=planted[fault], grad_norm=gn1, dgnorm=abs(gn1 - gn2) / gn1)
+    return rec
+
+
+class _CommTally:
+    """The functional collectives of a window by kind: counts from DTensor's
+    ``CommDebugMode`` and each call's input bytes on this rank."""
+
+    def __init__(self):
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        tally = self
+
+        class Mode(CommDebugMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = super().__torch_dispatch__(func, types, args, kwargs)
+                name = getattr(func, "__name__", "").split(".")[0]
+                if out is not NotImplemented and (
+                        getattr(func, "namespace", "") in ("_c10d_functional", "c10d_functional")
+                        or name == "shard_dim_alltoall"):
+                    if not name.startswith(("wait", "_wrap")):
+                        xs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+                        c, b = tally.bytes.get(name, (0, 0))
+                        tally.bytes[name] = (c + 1, b + sum(x.numel() * x.element_size()
+                                                            for x in xs))
+                return out
+
+        self.bytes = {}
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def counts(self):
+        return {str(k).split(".")[-1]: v for k, v in self.mode.get_comm_counts().items()}
+
+
+def train_mesh_timed(torch, dev, mesh) -> dict:
+    """h2o-danube-1.8b at its full config (bf16 activations over fp32
+    masters, remat "full"), MESH_TRAIN_LAYERS deep, at [train]'s traffic (B
+    = 4 x T = 2,048) on the mesh: one warm-up step under a tally of its
+    collectives, then MESH_TIMED timed (each placing its batch). The ranks
+    build the state in turn."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.launch.steps import build_cell, run_cell, sharded_train_state
+    from repro_torch.models import Model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_TRAIN_LAYERS)
+    model = Model(cfg, device=dev)
+    cell = build_cell(cfg, "train_4k", mesh,
+                      shape=ShapeSpec("train_mesh", TRAIN_T, TRAIN_B, "train"),
+                      opt_cfg=AdamWConfig(**TRAIN_OPT))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = sharded_train_state(model, 0, cell.in_shardings[0])
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    state_bytes = _local_bytes(tree_leaves(state.params) + tree_leaves(state.opt.mu)
+                               + tree_leaves(state.opt.nu))
+    pipe = TokenPipeline(cfg.vocab, TRAIN_T, TRAIN_B, seed=0, device=dev)
+    ps = TokenPipelineState()
+    losses, times, tally = [], [], _CommTally()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1 + MESH_TIMED):
+        batch, ps = pipe.next_batch(ps)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t = time.perf_counter()
+        # the warm-up step under the collectives' tally
+        with tally if i == 0 else contextlib.nullcontext():
+            state, m = run_cell(cell, state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t)
+    return dict(layers=cfg.n_layers, full_layers=full.n_layers, init_s=init_s,
+                init_peak_bytes=init_peak, state_bytes=state_bytes,
+                params=cfg.param_count(), step_s=times, losses=losses,
+                step_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                comm_counts=tally.counts(), comm_bytes=tally.bytes)
+
+
+def train_mesh_report(records, card):
+    """[train_mesh]: hold the numerics and print the timed steps."""
+    r0 = records[0]
+    num = r0["numerics"]
+    say("train_mesh", card=json.dumps(card), mesh=json.dumps(dict(zip(("data", "model"),
+                                                                      MESH_SHAPE))),
+        ranks=len(records), transport=r0["transport"], device=r0["device"])
+    say("train_mesh", check="fp32 full width, 2 layers, B=2 T=256: mesh vs one process on "
+        "the card", params=num["params"], loss=f"{num['loss']:.6f}",
+        one_process_loss=f"{num['one_process_loss']:.6f}", dloss=f"{num['dloss']:.3e}",
+        loss_tol=MESH_LOSS_TOL, dparam=f"{num['dparam']:.3e}", param_tol=MESH_PARAM_TOL,
+        step_ms=f"{num['step_ms']:.3f}", demotions=num["demotions"])
+    say("train_mesh", check="gradients: mesh vs one process, each leaf of its max |g|",
+        worst_leaf=num["worst_leaf"], grad_err=f"{num['grad_err']:.3e}", grad_tol=MESH_GRAD_TOL,
+        grad_norm=f"{num['grad_norm']:.6f}", grad_norm_rel_diff=f"{num['dgnorm']:.3e}",
+        grad_norm_rtol=MESH_GNORM_RTOL, planted_fault="one-process gradients of half the batch",
+        planted_leaf=num["planted_leaf"], planted_err=f"{num['planted_err']:.3e}")
+    for rec in records:
+        n = rec["numerics"]
+        say("train_mesh", rank=rec["rank"], coordinate=json.dumps(rec["coordinate"]),
+            leaves=n["leaves"], placements_equal=n["placements_equal"],
+            sharded_leaves=n["sharded_leaves"], local_devices=json.dumps(n["local_devices"]))
+        check(n["placements_equal"] == n["leaves"] and n["local_devices"] == ["cuda"],
+              f"[train_mesh] rank {rec['rank']}: {n['leaves'] - n['placements_equal']} leaves "
+              f"off their named_shardings_for placements, local shards on {n['local_devices']}")
+    check(num["dloss"] < MESH_LOSS_TOL and num["dparam"] < MESH_PARAM_TOL
+          and num["grad_err"] <= MESH_GRAD_TOL and num["dgnorm"] <= MESH_GNORM_RTOL,
+          f"[train_mesh] the mesh step differs from the one-process step: {num}")
+    check(num["planted_err"] > MESH_GRAD_TOL,
+          f"[train_mesh] the gradient check passes a planted fault: {num['planted_err']}")
+    t0 = r0["timed"]
+    steps = t0["step_s"][1:]
+    p50 = statistics.median(steps)
+    cut = "none" if t0["layers"] == t0["full_layers"] else \
+        f"depth {t0['layers']} of {t0['full_layers']} layers (the phase's time over gloo)"
+    say("train_mesh", timed_steps=len(steps), layers=t0["layers"], reduced=json.dumps(cut),
+        params=t0["params"], batch=TRAIN_B, seq=TRAIN_T, step_ms_p50=f"{p50 * 1e3:.3f}",
+        step_ms=json.dumps([round(x * 1e3, 3) for x in steps]),
+        warmup_step_ms=f"{t0['step_s'][0] * 1e3:.3f}",
+        tokens_per_s=f"{TRAIN_B * TRAIN_T / p50:.1f}",
+        losses=json.dumps([round(x, 6) for x in t0["losses"]]))
+    for rec in records:
+        t = rec["timed"]
+        say("train_mesh", rank=rec["rank"], state_bytes=t["state_bytes"],
+            init_s=f"{t['init_s']:.3f}", init_peak_bytes=t["init_peak_bytes"],
+            step_peak_bytes=t["step_peak_bytes"], peak_bytes=rec["train_peak_bytes"])
+    say("train_mesh", collectives_one_step=json.dumps(t0["comm_counts"]),
+        input_bytes_one_step_rank0=json.dumps({k: {"calls": c, "bytes": b}
+                                               for k, (c, b) in t0["comm_bytes"].items()}))
+    check(all(math.isfinite(x) for x in t0["losses"]), f"[train_mesh] losses {t0['losses']}")
+
+
+def serve_mesh_run(torch, dev, mesh) -> dict:
+    """deepseek-7b at full width, 2 layers, fp32: build_cell's prefill and
+    decode cells on the mesh (B = 2 rows, a 64-token prompt, 4 greedy
+    decode steps); rank 0 holds every step's logits and token to the
+    one-process prefill and decode_step on the card. Each rank builds the
+    parameters from the seed in turn and keeps its blocks."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_cell, place_in_turn, run_cell
+    from repro_torch.models import Model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2, dtype="float32")
+    B, T, n = MESH_SERVE_B, MESH_SERVE_T, MESH_SERVE_STEPS
+    S = T + n
+    model = Model(cfg, device=dev)
+    pre = build_cell(cfg, "prefill_32k", mesh, shape=ShapeSpec("prefill", S, B, "prefill"))
+    dec = build_cell(cfg, "decode_32k", mesh, shape=ShapeSpec("decode", S, B, "decode"))
+    rank = dist.get_rank()
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator(dev).manual_seed(5),
+                           device=dev, dtype=torch.int32)
+    want = []
+    if rank == 0:    # the one-process prefill and greedy decode on the card
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        lg, cache = model.prefill(params, {"tokens": tokens}, model.init_cache(B, S, torch.float32))
+        want.append(lg)
+        for _ in range(n):
+            lg, cache = model.decode_step(params, want[-1].argmax(-1).int(), cache)
+            want.append(lg)
+        del params, cache
+        torch.cuda.empty_cache()
+    dist.barrier()
+    params = place_in_turn(lambda: model.init(torch.Generator(dev).manual_seed(0)),
+                           pre.in_shardings[0])
+    cache = model.init_cache(B, S, torch.float32)
+    torch.cuda.synchronize(dev)
+    got, times = [], []
+    t0 = time.perf_counter()
+    lg, cache = run_cell(pre, params, {"tokens": tokens}, cache)
+    full = lg.full_tensor()
+    times.append(time.perf_counter() - t0)
+    got.append(full)
+    for _ in range(n):
+        t0 = time.perf_counter()
+        lg, cache = run_cell(dec, params, full.argmax(-1).int(), cache)
+        full = lg.full_tensor()
+        times.append(time.perf_counter() - t0)
+        got.append(full)
+    caches = [c.k for c in cache.attn] + [c.v for c in cache.attn]
+    rec = dict(step_s=times, cache_placed=all(
+        isinstance(c, DTensor) and tuple(c.placements) == tuple(w.k.placements)
+        for c, w in zip(caches, pre.in_shardings[2].attn * 2)),
+        cache_bytes=_local_bytes(caches),
+        param_bytes=_local_bytes(tree_leaves(params)),
+        local_devices=sorted({c.to_local().device.type for c in caches + tree_leaves(params)}))
+    if rank == 0:
+        rec["errs"] = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        rec["tokens_equal"] = [bool(torch.equal(g.argmax(-1), w.argmax(-1)))
+                               for g, w in zip(got, want)]
+        rec["params"] = cfg.param_count()
+    return rec
+
+
+def serve_mesh_report(records, card):
+    """[serve_mesh]: hold the prefill and decode cells to one process."""
+    r0 = dict(records[0]["serve"], transport=records[0]["transport"])
+    say("serve_mesh", card=json.dumps(card), arch=LM_ARCH, layers=2, width="full",
+        dtype="float32", params=r0["params"], batch=MESH_SERVE_B, prompt=MESH_SERVE_T,
+        decode_steps=MESH_SERVE_STEPS, transport=r0["transport"],
+        prefill_ms=f"{r0['step_s'][0] * 1e3:.3f}",
+        decode_ms=json.dumps([round(x * 1e3, 3) for x in r0["step_s"][1:]]),
+        max_rel_err=f"{max(r0['errs']):.3e}", tol=MESH_LOGIT_TOL,
+        tokens_equal=json.dumps(r0["tokens_equal"]), seconds=f"{r0['seconds']:.3f}")
+    for rank in records:
+        rec = dict(rank["serve"], rank=rank["rank"], coordinate=rank["coordinate"])
+        say("serve_mesh", rank=rec["rank"], coordinate=json.dumps(rec["coordinate"]),
+            param_bytes=rec["param_bytes"], cache_bytes=rec["cache_bytes"],
+            cache_placed=rec["cache_placed"], local_devices=json.dumps(rec["local_devices"]),
+            peak_bytes=rec["peak_bytes"])
+        check(rec["cache_placed"] and rec["local_devices"] == ["cuda"],
+              f"[serve_mesh] rank {rec['rank']}: caches off cache_specs or shards off the card")
+    check(max(r0["errs"]) < MESH_LOGIT_TOL and all(r0["tokens_equal"]),
+          f"[serve_mesh] the mesh cells differ from one process: {r0['errs']} "
+          f"{r0['tokens_equal']}")
+
+
+def train_mesh_cli_phase():
+    """[train_mesh_cli]: the training entry point across world sizes, on the
+    card. ``torch.distributed.run --nproc_per_node 4 -m
+    repro_torch.launch.train --reduced --model-parallel 2`` (a (2, 2) mesh,
+    gloo on cuda:0) is sent SIGTERM after its step-10 line and saves with
+    every rank; two ranks (a (1, 2) mesh) resume from that checkpoint and
+    end, rc 0, on an uninterrupted one-process run's last loss."""
+    import signal
+    root = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cmd(ranks, *extra):
+        run = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(ranks)] if ranks else [sys.executable])
+        return run + ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--reduced",
+                      "--steps", str(MESH_CLI_STEPS), "--batch", "8", "--seq", "128",
+                      "--log-every", "5", *extra]
+
+    def last_loss(lines):
+        return float([ln.split()[3] for ln in lines if ln.startswith("step ")][-1])
+
+    ckpt = ("--ckpt-dir", str(root), "--ckpt-every", "5")
+    t0 = time.perf_counter()
+    # the uninterrupted one-process run goes beside the four ranks
+    a = subprocess.Popen(cmd(0), cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=env)
+    try:
+        b = subprocess.Popen(cmd(4, "--model-parallel", "2", *ckpt), cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        b_lines = []
+        try:
+            for line in b.stdout:
+                b_lines.append(line.rstrip("\n"))
+                print(f"[train_mesh_cli] 4 ranks: {b_lines[-1]}", flush=True)
+                if line.startswith(f"step {MESH_CLI_SIGTERM:5d}"):
+                    b.send_signal(signal.SIGTERM)
+            b_rc = b.wait(timeout=300)
+            b_err = b.stderr.read()
+        finally:
+            b.kill()
+        saved = sorted(p.name for p in root.glob("step_*"))
+        check(any(ln.startswith("SIGTERM: checkpointing") for ln in b_lines) and saved,
+              f"the SIGTERM'd 4-rank run saved no checkpoint (rc {b_rc}): {b_err[-2000:]}")
+        c = subprocess.run(cmd(2, *ckpt), cwd=ROOT, capture_output=True, text=True,
+                           timeout=300, env=env)
+        for line in c.stdout.splitlines():
+            print(f"[train_mesh_cli] 2 ranks: {line}", flush=True)
+        check(c.returncode == 0, f"the resumed 2-rank train CLI exited {c.returncode}: "
+                                 f"{c.stderr[-2000:]}")
+        c_lines = c.stdout.splitlines()
+        resumed = [ln for ln in c_lines if ln.startswith("resumed from step ")]
+        a_out, a_err = a.communicate(timeout=300)
+        check(a.returncode == 0, f"the one-process train CLI exited {a.returncode}: "
+                                 f"{a_err[-2000:]}")
+        la, lc = last_loss(a_out.splitlines()), last_loss(c_lines)
+        rel = abs(la - lc) / abs(la)
+        say("train_mesh_cli", first_mesh=json.dumps(b_lines[0].split("mesh=")[1].split(" t")[0]),
+            sigterm_rc=b_rc, saved=json.dumps(saved), resumed=json.dumps(resumed),
+            resume_mesh=json.dumps(c_lines[0].split("mesh=")[1].split(" t")[0]),
+            rc=c.returncode, last_loss_one_process=la, last_loss_resumed=lc,
+            rel_diff=f"{rel:.3e}", rtol=TRAIN_CLI_LOSS_RTOL,
+            seconds=f"{time.perf_counter() - t0:.3f}")
+        check("mesh={'data': 2, 'model': 2}" in b_lines[0]
+              and "mesh={'data': 1, 'model': 2}" in c_lines[0] and resumed
+              and c_lines[-1] == "done",
+              "the 4-rank run printed no 2 x 2 mesh, or the 2-rank rerun did not resume")
+        check(rel <= TRAIN_CLI_LOSS_RTOL,
+              f"the resumed run's last loss {lc} differs from the one-process {la}")
+    finally:
+        a.kill()
+        a.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database size")
@@ -2156,9 +2674,13 @@ def main(argv=None) -> int:
                          "tmpfs: /tmp may be RAM)")
     ap.add_argument("--rank-worker", dest="rank_worker", default=None,
                     help=argparse.SUPPRESS)   # one rank of [sharded_ranks]
+    ap.add_argument("--mesh-worker", dest="mesh_worker", default=None,
+                    help=argparse.SUPPRESS)   # one rank of [train_mesh] or [serve_mesh]
     args = ap.parse_args(argv)
     if args.rank_worker is not None:
         return rank_worker(json.loads(args.rank_worker))
+    if args.mesh_worker is not None:
+        return mesh_worker(json.loads(args.mesh_worker))
 
     # a run that outlives its budget dumps every thread's stack and exits 1
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -2190,7 +2712,6 @@ def main(argv=None) -> int:
     say("card", name=json.dumps(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda")
-
     build_s = build_all()
     say("build", kernels=len(KERNELS), nvcc_parallel_s=f"{build_s:.3f}")
     for kname in kernel_names():
@@ -2402,6 +2923,11 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     train_dp_phase(torch, dev)
     say("train_dp", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    torch.cuda.empty_cache()
+
+    # ---- [train_mesh], [serve_mesh], [train_mesh_cli]: the LM steps over a
+    # (data, model) DeviceMesh of four ranks sharing the card ---------------
+    mesh_phases(smi.stdout.strip().splitlines()[0])
     kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
                      l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
     for rec in record:

@@ -10,9 +10,13 @@ The format is the reference's: ``arrays.npz`` holds one array per leaf
 under the reference's path string (a dataclass field as ``.name``, a dict
 key bare, joined by ``/``: ``.params/embed/table``, ``.opt/.mu/layers/attn/wq``,
 ``.opt/.step``, ``.step``) and ``meta.json`` is ``{"step", "extra"}``, so a
-checkpoint written by either package restores into the other. The
-reference's elastic ``shardings=`` has no one-card counterpart: ``device=``
-places the restored leaves.
+checkpoint written by either package restores into the other.
+
+Checkpoints are elastic. A tree of DTensors is saved by every rank of its
+mesh (each leaf's ``full_tensor()`` is a collective); rank 0 writes the
+whole arrays, so the file is the one a single process writes. ``restore``
+with ``shardings=`` places each leaf on the mesh of the restarted job,
+whatever mesh saved it; without, ``device=`` places the plain leaves.
 """
 from __future__ import annotations
 
@@ -26,17 +30,23 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..kernels.dispatch import resolve_device
+from ..models.sharding import NamedSharding
 
 __all__ = ["CheckpointManager"]
 
 
 def _flatten_with_paths(tree, prefix=(), out=None):
     """{path string: leaf} in the reference's naming (``jax.tree_util``'s
-    key paths as ``manager.py:_flatten_with_paths`` prints them)."""
+    key paths as ``manager.py:_flatten_with_paths`` prints them). A
+    ``NamedSharding`` is a leaf (of a shardings tree)."""
     out = {} if out is None else out
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+    if isinstance(tree, NamedSharding):
+        out["/".join(prefix)] = tree
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
             _flatten_with_paths(getattr(tree, f.name), prefix + (f".{f.name}",), out)
     elif isinstance(tree, dict):
@@ -66,13 +76,23 @@ def _rebuild(tree, prefix, leaf_fn):
 
 
 def _host_copy(key, leaf) -> np.ndarray:
-    """A host copy of one leaf that no later in-place update can touch."""
+    """A host copy of one leaf that no later in-place update can touch (a
+    DTensor's whole value: a collective)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
             raise TypeError(f"checkpoint leaf {key!r} is {leaf.dtype}, which numpy "
                             "cannot hold; cast it before saving")
+        if isinstance(leaf, DTensor):
+            return leaf.detach().full_tensor().cpu().numpy()
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of this rank's blocks on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 class CheckpointManager:
@@ -88,8 +108,19 @@ class CheckpointManager:
              block: bool = False):
         """Copy every leaf to host memory before returning (the next train
         step overwrites the parameters in place); write to disk in a
-        background thread unless ``block`` or ``async_save=False``."""
-        host = {k: _host_copy(k, v) for k, v in _flatten_with_paths(tree).items()}
+        background thread unless ``block`` or ``async_save=False``. A tree
+        with DTensor leaves is saved by every rank of their mesh, leaf by
+        leaf; rank 0 alone keeps the arrays and writes."""
+        leaves = _flatten_with_paths(tree)
+        sharded = any(isinstance(v, DTensor) for v in leaves.values())
+        writer = not sharded or dist.get_rank() == 0
+        host = {}
+        for k, v in leaves.items():
+            h = _host_copy(k, v)
+            if writer:
+                host[k] = h
+        if not writer:
+            return
         meta = {"step": int(step), "extra": extra or {}}
         self.wait()
         if self.async_save and not block:
@@ -135,25 +166,36 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *, device=None):
+    def restore(self, step: int, like: Any, *, shardings=None, device=None):
         """(tree, meta): the checkpoint in the structure of ``like`` (a tree
-        of tensors, e.g. a freshly initialised ``TrainState``; its leaves
-        give the dtypes), each leaf on ``device`` (None -> cuda)."""
-        dev = resolve_device(device)
+        of tensors, e.g. a freshly initialised ``TrainState``, or meta
+        tensors; its leaves give the dtypes). With ``shardings`` (a tree of
+        ``NamedSharding`` over ``like``) each leaf becomes a DTensor on that
+        mesh, which need not be the mesh that saved it; every rank reads the
+        file and keeps its own blocks. Otherwise each leaf lands on
+        ``device`` (None -> cuda)."""
+        placed = _flatten_with_paths(shardings) if shardings is not None else None
+        if placed is None:
+            dev = resolve_device(device)
         self.wait()
         d = self.dir / f"step_{step:08d}"
-        with np.load(d / "arrays.npz") as z:
-            values = {k: z[k] for k in z.files}
-        missing = [k for k in _flatten_with_paths(like) if k not in values]
-        if missing:
-            raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
-
-        def leaf(key, want):
-            t = torch.from_numpy(values[key]).to(dev)
-            return t.to(want.dtype) if isinstance(want, torch.Tensor) else t
-
         meta = json.loads((d / "meta.json").read_text())
-        return _rebuild(like, (), leaf), meta
+        with np.load(d / "arrays.npz") as z:    # read leaf by leaf
+            missing = [k for k in _flatten_with_paths(like) if k not in z.files]
+            if missing:
+                raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
+
+            def leaf(key, want):
+                t = torch.from_numpy(z[key])
+                if isinstance(want, torch.Tensor):
+                    t = t.to(want.dtype)
+                if placed is None:
+                    return t.to(dev)
+                sh = placed[key]
+                return distribute_tensor(t.to(_mesh_device(sh.mesh)), sh.mesh, sh.placements,
+                                         src_data_rank=None)
+
+            return _rebuild(like, (), leaf), meta
 
     def restore_latest(self, like, **kw):
         step = self.latest_step()

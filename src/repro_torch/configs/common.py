@@ -5,14 +5,15 @@ from __future__ import annotations
 
 import torch
 
-from ..models.config import SHAPES, ArchConfig
+from ..models.config import SHAPES, ArchConfig, ShapeSpec
 
 __all__ = ["input_specs", "SHAPES"]
 
 
-def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
-    """Model inputs for one shape cell, as meta tensors."""
-    spec = SHAPES[shape_name]
+def input_specs(cfg: ArchConfig, shape_name: str, *, shape: ShapeSpec = None) -> dict:
+    """Model inputs for one shape cell, as meta tensors (``shape`` in place
+    of ``SHAPES[shape_name]``)."""
+    spec = shape or SHAPES[shape_name]
     B, T = spec.global_batch, spec.seq_len
 
     def meta(shape, dtype):

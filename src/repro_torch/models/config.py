@@ -5,10 +5,13 @@ One frozen dataclass describes every family (dense / moe / ssm / hybrid /
 encdec); ``repro_torch/configs/<id>.py`` instantiates the exact published
 numbers and provides ``reduced()`` for CPU tests. ``activation_dtype`` is a
 torch dtype. ``remat`` steers activation checkpointing in a training
-forward (``models/stack.py:remat``). The reference's other execution fields
-(``scan_layers``, ``max_seq``) and its sharding levers
-(``bf16_compute_weights``, ``moe_shard_capacity``) steer XLA's compilation
-and GSPMD; nothing here reads them, so they are not fields.
+forward (``models/stack.py:remat``). The two sharding levers are the
+reference's: ``bf16_compute_weights`` casts the layer parameters to bf16
+once before the layer loop (``models/stack.py:compute_weights``), and
+``moe_shard_capacity`` shards the MoE dispatch buffer's capacity dim over
+tp (``models/moe.py``). The reference's other execution fields
+(``scan_layers``, ``max_seq``) steer XLA's compilation; nothing here reads
+them, so they are not fields.
 """
 from __future__ import annotations
 
@@ -76,6 +79,11 @@ class ArchConfig:
     # numerics: activations (weights are fp32 masters cast at each use)
     dtype: str = "bfloat16"
     remat: str = "full"    # none | full | dots: what a training forward saves
+    # sharding levers (the reference's perf levers)
+    bf16_compute_weights: bool = False  # cast layer params to bf16 before the
+                                        # layer loop, so FSDP all-gathers move bf16
+    moe_shard_capacity: bool = False    # shard MoE dispatch buffers' capacity
+                                        # dim over tp (EP-over-capacity)
 
     # ---- derived -----------------------------------------------------------
     @property

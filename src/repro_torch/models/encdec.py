@@ -17,6 +17,7 @@ import torch
 
 from . import layers as L
 from .config import ArchConfig
+from .sharding import shard_hint
 from .stack import attn_cache_spec, embed_tokens, remat, unstack
 
 __all__ = ["init_encdec_params", "encode", "decode_forward", "init_encdec_cache",
@@ -102,7 +103,7 @@ def _encoder_layer(lp, x, cfg: ArchConfig):
         q = q + lp["attn"]["bq"].to(dt)
         k = k + lp["attn"]["bk"].to(dt)
         v = v + lp["attn"]["bv"].to(dt)
-    out = L.flash_attention(q, k, v, causal=False)
+    out = L.attention(q, k, v, causal=False)
     y = torch.einsum("bthk,hkd->btd", out, lp["attn"]["wo"].to(dt))
     if cfg.attn_bias:
         y = y + lp["attn"]["bo"].to(dt)
@@ -172,7 +173,7 @@ def decode_forward(params, tokens, enc_out, cfg: ArchConfig, *, mode="train",
             ck_new.append(k.to(dt))
             cv_new.append(v.to(dt))
     x = L.norm_apply(params["final_norm"], x, cfg)
-    logits = x @ params["embed"]["table"].to(x.dtype).T
+    logits = shard_hint(x @ params["embed"]["table"].to(x.dtype).T, "dp", None, "tp")
     new_cache = None
     if cache is not None:
         new_cache = EncDecCache(self_attn=ac_new, cross_k=ck_new, cross_v=cv_new)

@@ -14,15 +14,19 @@ operands are upcast, since a bf16 ``torch.matmul`` rounds its output).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from .sharding import local_map, mesh_size_of
+
 __all__ = [
     "init_norm", "norm_apply", "init_embedding", "rope", "sincos_positions",
-    "init_attention", "flash_attention", "decode_attention", "AttnCache",
+    "init_attention", "flash_attention", "decode_attention", "attention",
+    "cached_attention", "AttnCache",
     "init_attn_cache", "cache_update", "cache_valid_mask", "attn_apply",
     "init_mlp", "mlp_apply", "act", "norm_specs", "embedding_specs", "attention_specs",
     "mlp_specs", "stacked_specs",
@@ -291,6 +295,34 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _heads_local(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` on each rank's batch rows and heads: over a
+    mesh the attention core runs on local blocks (``local_map``), batch over
+    dp and heads over tp, the KV heads repeated to the query heads first
+    where they do not divide over tp (query head h reads KV head h // G in
+    either layout). DTensor's view of the products' flattened (batch, head)
+    dims fails in torch 2.11, and the chunk loop's small ops would each pay
+    DTensor's dispatch. ``rest`` are [B, S] masks."""
+    tp = mesh_size_of(q, "tp")
+    if tp and k.shape[2] % tp:
+        G = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    heads = ("dp", None, "tp", None)
+    return local_map(fn, (q, k, v, *rest), (heads, heads, heads) + (("dp", None),) * len(rest),
+                     heads)
+
+
+def attention(q, k, v, *, causal=True, window=0):
+    """``flash_attention`` over a mesh's local heads (``_heads_local``)."""
+    return _heads_local(functools.partial(flash_attention, causal=causal, window=window),
+                        q, k, v)
+
+
+def cached_attention(q, k_cache, v_cache, valid_mask):
+    """``decode_attention`` over a mesh's local heads (``_heads_local``)."""
+    return _heads_local(decode_attention, q, k_cache, v_cache, valid_mask)
+
+
 @dataclasses.dataclass
 class AttnCache:
     """KV cache for one attention site. ``length`` (tokens written so far,
@@ -352,14 +384,14 @@ def attn_apply(p, x, cfg, *, positions=None, mode="train", use_rope=True,
         if kv_override is not None:
             q = _project_q(p, x, cfg)
             k, v, mask = kv_override
-            out = decode_attention(q, k, v, mask)
+            out = cached_attention(q, k, v, mask)
             new_cache = cache
         else:
             pos = torch.full((B, 1), cache.length, dtype=torch.int32, device=x.device)
             q, k, v = _project_qkv(p, x, cfg, pos if use_rope else None)
             valid = cache_valid_mask(cache)
             new_cache = cache_update(cache, k, v)
-            out = decode_attention(q, new_cache.k, new_cache.v, valid)
+            out = cached_attention(q, new_cache.k, new_cache.v, valid)
         y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(dt))
         if cfg.attn_bias:
             y = y + p["bo"].to(dt)
@@ -369,10 +401,10 @@ def attn_apply(p, x, cfg, *, positions=None, mode="train", use_rope=True,
     if kv_override is not None:
         q = _project_q(p, x, cfg)
         k, v, _ = kv_override
-        out = flash_attention(q, k, v, causal=False)
+        out = attention(q, k, v, causal=False)
     else:
         q, k, v = _project_qkv(p, x, cfg, positions if use_rope else None)
-        out = flash_attention(q, k, v, causal=True, window=cfg.swa_window)
+        out = attention(q, k, v, causal=True, window=cfg.swa_window)
     y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(dt))
     if cfg.attn_bias:
         y = y + p["bo"].to(dt)

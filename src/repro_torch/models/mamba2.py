@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .sharding import local_map
+
 __all__ = ["init_mamba2", "mamba2_apply", "init_ssm_cache", "SSMCache", "mamba2_specs"]
 
 
@@ -145,6 +147,34 @@ def init_ssm_cache(cfg, batch, dtype=torch.float32, *, device="cpu"):
 
 
 def mamba2_apply(p, x, cfg, *, mode="train", cache: SSMCache | None = None):
+    """x [B, T, d] -> (y [B, T, d], cache'). Over a mesh the block runs on
+    each rank's batch rows with its weights gathered whole (``local_map``):
+    its in_proj's output concatenates z, x, B, C and dt, which no tp split
+    of the columns keeps apart, and its chunk loop's small ops would each
+    pay DTensor's dispatch; every tp rank computes the same rows."""
+    names = sorted(p)
+    state = () if cache is None else (cache.state, cache.conv)
+    keep = mode != "train"    # prefill and decode return a new cache
+    length = []
+
+    def run(x, *leaves):
+        c = None if cache is None else SSMCache(state=leaves[-2], conv=leaves[-1],
+                                                length=cache.length)
+        out, new = _mamba2_apply(dict(zip(names, leaves)), x, cfg, mode=mode, cache=c)
+        if not keep:
+            return (out,)
+        length.append(new.length)
+        return out, new.state, new.conv
+
+    got = local_map(run, (x, *(p[n] for n in names), *state),
+                    [("dp",)] + [()] * len(names) + [("dp",)] * len(state),
+                    [("dp",)] * (3 if keep else 1))
+    if not keep:
+        return got[0], cache
+    return got[0], SSMCache(state=got[1], conv=got[2], length=length[0])
+
+
+def _mamba2_apply(p, x, cfg, *, mode="train", cache: SSMCache | None = None):
     """x [B, T, d] -> (y [B, T, d], cache')."""
     Bsz, T, d = x.shape
     di, nh, P, N, conv_dim = _dims(cfg)

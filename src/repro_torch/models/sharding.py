@@ -23,12 +23,16 @@ reference's ``NamedSharding`` gives it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Sequence
 
+import torch
+
 __all__ = ["AxisRules", "AbstractMesh", "NamedSharding", "SINGLE_DEVICE_RULES",
            "logical_spec", "named_sharding", "placements_for", "set_active_rules",
-           "shard_hint", "divisible", "axis_size"]
+           "active_rules", "on_mesh", "shard_hint", "replicated", "local_map",
+           "mesh_size_of", "rows_local", "divisible", "axis_size"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,10 +139,44 @@ def set_active_rules(rules: Optional[AxisRules]) -> None:
     _ACTIVE_RULES[0] = rules
 
 
+@contextlib.contextmanager
+def active_rules(rules: Optional[AxisRules]):
+    """Set the rules that shard hints resolve against for the body, and
+    restore the previous ones on the way out (a failed step included)."""
+    prev = _ACTIVE_RULES[0]
+    _ACTIVE_RULES[0] = rules
+    try:
+        yield rules
+    finally:
+        _ACTIVE_RULES[0] = prev
+
+
+@contextlib.contextmanager
+def on_mesh(rules: Optional[AxisRules]):
+    """The context a step runs in over a mesh: ``rules`` active for the
+    shard hints, and DTensor's ``implicit_replication``, so the plain
+    tensors a step makes for itself (positions, masks, RoPE tables, the
+    MoE aux loss's zero, the flash loop's running max) meet the DTensors as
+    replicated values, which is what they are."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with active_rules(rules), implicit_replication():
+        yield rules
+
+
+def _even_spec(shape, logical, rules, mesh) -> tuple:
+    """The physical axes of ``logical`` over ``shape``, an axis that does not
+    divide its dim dropped (``launch.steps.named_shardings_for``'s
+    demotion), so no DTensor shard is ever uneven."""
+    spec = logical_spec(tuple(logical) + (None,) * (len(shape) - len(logical)), rules)
+    return tuple(None if p is None or dim % axis_size(mesh, p) else p
+                 for dim, p in zip(shape, spec))
+
+
 def shard_hint(x, *logical):
     """Redistribute a DTensor to the placements of its logical axes; the
     identity with no rules active, on a plain tensor, or when every axis
-    resolves to None."""
+    resolves to None. An axis that does not divide its dim is dropped."""
     rules = _ACTIVE_RULES[0]
     if rules is None:
         return x
@@ -146,10 +184,100 @@ def shard_hint(x, *logical):
 
     if not isinstance(x, DTensor):
         return x
-    spec = logical_spec(logical, rules)
+    spec = _even_spec(x.shape, logical, rules, x.device_mesh)
     if all(s is None for s in spec):
         return x
     return x.redistribute(x.device_mesh, placements_for(x.device_mesh, spec))
+
+
+def replicated(x):
+    """A DTensor redistributed to be whole on every rank (an all-gather of
+    its shards); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def mesh_size_of(x, logical: str) -> int:
+    """The number of devices the logical axis spans on a DTensor's mesh under
+    the active rules; 0 for a plain tensor (the ``tp_size`` of one process)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return 0
+    mesh = x.device_mesh
+    return (_ACTIVE_RULES[0] or AxisRules.make(mesh)).mesh_size(logical, mesh)
+
+
+def local_map(fn, args, in_axes, out_axes, *, partial: Optional[str] = None):
+    """``fn`` over each rank's own blocks: torch's
+    ``torch.distributed.tensor.experimental.local_map`` with logical axes.
+    With DTensor arguments, argument i is redistributed to the placements of
+    its logical axes ``in_axes[i]``, ``fn`` runs on the local tensors, and
+    each tensor it returns comes back as a DTensor placed by ``out_axes``
+    (one tuple for the one output, or a list of them, one an output),
+    summed over the mesh dims of ``partial`` (a logical axis) where ``fn``
+    leaves partial sums. A logical axis that does not divide an argument's
+    dim is dropped there and from the outputs (and from ``partial``). A
+    plain tensor argument with axes (a mask the step made, whole on every
+    rank) is split as a replicated DTensor would be; an argument replicated
+    over a mesh dim that splits the work gets a partial gradient there.
+    Other arguments (None, a plain tensor without axes) reach ``fn`` as
+    they are. With plain tensors (one process) it is ``fn(*args)``. For
+    ops that DTensor cannot shard, or shards in a layout whose view or
+    backward fails, or loops of small ops whose dispatch over DTensors
+    costs more than their work."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map as torch_local_map
+
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    rules = _ACTIVE_RULES[0] or AxisRules.make(mesh)
+    args, slots, places, dropped = list(args), [], [], set()
+    for i, (a, ax) in enumerate(zip(args, in_axes)):
+        if torch.is_tensor(a) and not isinstance(a, DTensor) and any(ax):
+            a = args[i] = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim)
+        if isinstance(a, DTensor):
+            ax = tuple(ax) + (None,) * (a.dim() - len(ax))
+            spec = _even_spec(a.shape, ax, rules, mesh)
+            dropped |= {lg for lg, sp in zip(ax, spec) if lg and sp is None}
+            slots.append(i)
+            places.append(placements_for(mesh, spec))
+    split = {d for pl in places for d, p in enumerate(pl) if isinstance(p, Shard)}
+    grads = [tuple(Partial() if d in split and not isinstance(p, Shard) else p
+                   for d, p in enumerate(pl)) for pl in places]
+    summed = None if partial is None or partial in dropped else rules.resolve(partial)
+    summed = {mesh.mesh_dim_names.index(a) for a in
+              (summed if isinstance(summed, tuple) else (summed,)) if a is not None}
+
+    def out_place(ax):
+        place = placements_for(mesh, logical_spec(
+            tuple(None if lg in dropped else lg for lg in ax), rules))
+        return [Partial() if d in summed else p for d, p in enumerate(place)]
+
+    one = not isinstance(out_axes, list)
+    outs = out_place(out_axes) if one else tuple(out_place(ax) for ax in out_axes)
+
+    def on_blocks(*local):
+        full = list(args)
+        for i, t in zip(slots, local):
+            full[i] = t
+        out = fn(*full)
+        return out.contiguous() if one else tuple(t.contiguous() for t in out)
+
+    return torch_local_map(on_blocks, outs, tuple(places), tuple(grads), mesh,
+                           redistribute_inputs=True)(*(args[i] for i in slots))
+
+
+def rows_local(fn, *args):
+    """``fn`` over each rank's own batch rows: ``local_map`` with every
+    argument and output split by its leading dim over dp, replicated over
+    the other mesh dims. For a scatter or gather by computed indices, which
+    DTensor cannot shard, whose indices are row-local."""
+    return local_map(fn, args, [("dp",)] * len(args), ("dp",))
 
 
 def named_sharding(mesh, axes: Sequence[Optional[str]],

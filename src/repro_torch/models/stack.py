@@ -22,9 +22,10 @@ from . import layers as L
 from . import mamba2 as M2
 from . import moe as MOE
 from .config import ArchConfig
+from .sharding import replicated, shard_hint
 
 __all__ = ["init_stack_params", "stack_forward", "init_stack_cache", "DecoderCache",
-           "unstack", "remat", "embed_tokens", "lm_logits", "stack_param_specs",
+           "unstack", "remat", "embed_tokens", "lm_logits", "compute_weights", "stack_param_specs",
            "stack_cache_specs"]
 
 
@@ -194,19 +195,40 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *, device
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
-    """The table's rows for ``tokens``, in the activation dtype. The lookup
-    is ``F.embedding``: its backward sums each row's gradient in a fixed
-    order, where indexing's (an accumulating ``index_put_``) does not on a
-    multi-threaded CPU."""
-    return F.embedding(tokens.long(), params["embed"]["table"]).to(cfg.activation_dtype)
+    """The table's rows for ``tokens``, in the activation dtype, batch over
+    dp (the reference's hint after the lookup in stack, hybrid and encdec).
+    The lookup is ``F.embedding``: its backward sums each row's gradient in
+    a fixed order, where indexing's (an accumulating ``index_put_``) does
+    not on a multi-threaded CPU."""
+    # over a mesh the table is first gathered whole: a lookup in a table
+    # sharded by vocab leaves DTensor a masked partial sum, which it cannot
+    # reduce when d shares a mesh dim with the tokens' rows, nor take a
+    # partial gradient back into in a microbatched backward
+    table = replicated(params["embed"]["table"])
+    x = F.embedding(tokens.long(), table).to(cfg.activation_dtype)
+    return shard_hint(x, "dp", None, None)
 
 
 def lm_logits(params, x, cfg: ArchConfig):
-    """Final norm, then the (tied or separate) output projection."""
+    """Final norm, then the (tied or separate) output projection; logits
+    batch over dp and vocab over tp (the reference's hint)."""
     x = L.norm_apply(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].to(x.dtype).T
-    return x @ params["lm_head"]["w"].to(x.dtype)
+        logits = x @ params["embed"]["table"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"]["w"].to(x.dtype)
+    return shard_hint(logits, "dp", None, "tp")
+
+
+def compute_weights(layers, cfg: ArchConfig):
+    """The layer parameters the loop reads: under ``bf16_compute_weights``
+    every fp32 leaf cast to bf16 once, before the loop, so FSDP gathers
+    move bf16 (the masters stay fp32 in the optimizer); else ``layers``."""
+    if not cfg.bf16_compute_weights:
+        return layers
+    if isinstance(layers, dict):
+        return {k: compute_weights(v, cfg) for k, v in layers.items()}
+    return layers.to(torch.bfloat16) if layers.dtype == torch.float32 else layers
 
 
 def stack_forward(params, tokens, cfg: ArchConfig, *, mode="train",
@@ -220,7 +242,7 @@ def stack_forward(params, tokens, cfg: ArchConfig, *, mode="train",
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = remat(_block_apply, cfg, mode)
     ac_new, sc_new = [], []
-    for i, lp in enumerate(unstack(params["layers"])):
+    for i, lp in enumerate(unstack(compute_weights(params["layers"], cfg))):
         aci = cache.attn[i] if cache is not None and cache.attn is not None else None
         sci = cache.ssm[i] if cache is not None and cache.ssm is not None else None
         x, aci, sci, a = block(lp, x, cfg, positions=positions, mode=mode, attn_cache=aci,

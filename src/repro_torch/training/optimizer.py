@@ -15,6 +15,7 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
            "lr_at", "global_norm", "clip_by_global_norm", "tree_leaves", "tree_unflatten",
@@ -88,8 +89,11 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares, as
     ``torch.sum(torch.square(x))`` (a pairwise sum on both devices: on the
     CPU, ``torch.linalg.vector_norm`` and ``torch._foreach_norm`` of an
-    82 M-element fp32 leaf are ~1 % off)."""
+    82 M-element fp32 leaf are ~1 % off). Over a mesh a leaf's sum is
+    all-reduced over its shards, so the norm is the global one, a plain
+    tensor equal on every rank."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    sums = [s.full_tensor() if isinstance(s, DTensor) else s for s in sums]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 

@@ -15,8 +15,10 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.model import Model
+from ..models.sharding import shard_hint
 from .optimizer import (AdamWConfig, OptState, adamw_update, init_opt_state, tree_leaves,
                         tree_unflatten)
 
@@ -46,7 +48,9 @@ def loss_fn(model: Model, params, batch, *, aux_weight: float = 0.01):
     logits = logits.float()
     targets = torch.as_tensor(batch["targets"], device=logits.device).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    # over a mesh logits hold vocab over tp: the gathered gold logit is a
+    # masked partial sum there, reduced at once (before it meets logz)
+    gold = shard_hint(torch.gather(logits, -1, targets[..., None]), "dp", None, None)[..., 0]
     nll = logz - gold
     mask = batch.get("mask")
     if mask is not None:
@@ -66,19 +70,30 @@ def loss_and_grads(model: Model, params, batch):
     to every parameter leaf, as a dict of the parameters' structure (the
     reference's ``jax.value_and_grad`` of ``loss_fn``). The graph is
     recorded on aliases of the leaves (same storage): the masters
-    themselves keep ``requires_grad`` off."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    themselves keep ``requires_grad`` off. Over a mesh each gradient is
+    placed as its parameter is (the FSDP reduce-scatter), and the loss is
+    the global one, a plain tensor equal on every rank."""
+    P = tree_leaves(params)
+    leaves = [p.detach().requires_grad_(True) for p in P]
     loss = loss_fn(model, tree_unflatten(params, leaves), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, grads)
+    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+             for p, g in zip(P, grads)]
+    loss = loss.detach()
+    if isinstance(loss, DTensor):     # partial sums over dp: the global loss
+        loss = loss.full_tensor()
+    return loss, tree_unflatten(params, grads)
 
 
 def _chunks(batch, n):
     """Split every entry of the batch along its leading axis into n equal
-    chunks (the reference's reshape to (n, B // n, ...))."""
+    chunks (the reference's reshape to (n, B // n, ...)). Over a mesh a
+    chunk holds the same rows as in one process, re-split over dp (the
+    slice gathers the batch's rows: ints and a mask, a few bytes a token)."""
     B = batch["tokens"].shape[0]
     mb = B // n
-    return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} for i in range(n)]
+    return [{k: shard_hint(v[i * mb:(i + 1) * mb], "dp") for k, v in batch.items()}
+            for i in range(n)]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatch: int = 0):
