@@ -120,6 +120,20 @@ contracts:
      ``[lm_cli]``: ``python -m repro_torch.launch.train --reduced`` for 40
      steps uninterrupted, and again sent SIGTERM after its step-10 line
      and rerun: it resumes and ends on the same loss.
+ 10. the dry run (``repro_torch.launch.dryrun``): ``[dryrun_ann]``,
+     ``[dryrun_queue]`` and ``[dryrun_external]`` on the card after
+     ``[qalsh]`` (hillclimb's C0 with its real 20,000-row shard, the
+     queue's warm-up per rung over a 10^6-row index, the external store
+     on aio), their kernel launches counted; ``[dryrun_lm]`` from a worker
+     process (``--dryrun-worker``) started after the build and collected
+     after the mesh phases: run_cell of h2o-danube-1.8b's train, prefill
+     and decode cells at one layer and run_cell_extrapolated of its train
+     cell and command-r-plus-104b's on a fake 16 x 16 CPU world (the train
+     cell's argument bytes the reference's 143,419,400, its FLOPs x 256
+     within 2 % of ``train_flops``); ``[dryrun_vs_mesh]``: the
+     ``[train_mesh]`` cell's dry run on a fake world of 4 (a cuda mesh of
+     fake tensors) equal, kind by kind in calls and operand bytes, to the
+     collectives the real warm-up step tallied on rank 0.
 
 Exits nonzero on any failure, without printing a result. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -127,6 +141,7 @@ are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import faulthandler
 import gc
@@ -203,6 +218,14 @@ MESH_TIMED = 3              # timed steps after one warm-up
 MESH_LOGIT_TOL = 2e-4       # [serve_mesh]: of the one-process logits' max |.|
 MESH_SERVE_B, MESH_SERVE_T, MESH_SERVE_STEPS = 2, 64, 4
 MESH_CLI_STEPS, MESH_CLI_SIGTERM = 20, 10   # [train_mesh_cli]
+DRYRUN_TIMEOUT_S = 700      # [dryrun_lm]'s worker (the fake worlds on the host's CPU)
+DRYRUN_DEPTH = 1            # its run_cell records: one layer a cell (24 take minutes on
+                            # the CPU); the extrapolated records fit the full depth
+DRYRUN_FLOPS_RTOL = 0.02    # extrapolated per-device FLOPs x 256 vs train_flops
+DRYRUN_TRAIN_ARGS = 143_419_400   # the reference's argument bytes, h2o train_4k, 16 x 16
+DRYRUN_EXTRA_ARCH = "command-r-plus-104b"   # a train cell the head repair unblocked
+DRYRUN_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")    # the reference's collective kinds
 
 
 class SmokeFailure(RuntimeError):
@@ -2182,16 +2205,18 @@ def train_cli_phase():
 # the LM steps over a DeviceMesh: four ranks on the card
 # ---------------------------------------------------------------------------
 
-def mesh_phases(card: str):
+def mesh_phases(card: str) -> dict:
     """[train_mesh] and [serve_mesh] (one set of ranks runs both), then
-    [train_mesh_cli], each with its seconds."""
+    [train_mesh_cli], each with its seconds; rank 0's tally of the
+    [train_mesh] warm-up step's collectives."""
     t_phase = time.perf_counter()
-    mesh_ranks_phase(card)
+    records = mesh_ranks_phase(card)
     say("train_mesh", serve_mesh_included=True,
         seconds=f"{time.perf_counter() - t_phase:.3f}")
     t_phase = time.perf_counter()
     train_mesh_cli_phase()
     say("train_mesh_cli", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return records[0]["timed"]["comm"]
 
 
 def mesh_ranks_phase(card: str):
@@ -2238,6 +2263,7 @@ def mesh_ranks_phase(card: str):
     shutil.rmtree(work, ignore_errors=True)
     train_mesh_report(lines[0], card)
     serve_mesh_report(lines[0], card)
+    return lines[0]
 
 
 def mesh_worker(cfg: dict) -> int:
@@ -2362,43 +2388,6 @@ def train_mesh_numerics(torch, dev, mesh) -> dict:
     return rec
 
 
-class _CommTally:
-    """The functional collectives of a window by kind: counts from DTensor's
-    ``CommDebugMode`` and each call's input bytes on this rank."""
-
-    def __init__(self):
-        from torch.distributed.tensor.debug import CommDebugMode
-
-        tally = self
-
-        class Mode(CommDebugMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                out = super().__torch_dispatch__(func, types, args, kwargs)
-                name = getattr(func, "__name__", "").split(".")[0]
-                if out is not NotImplemented and (
-                        getattr(func, "namespace", "") in ("_c10d_functional", "c10d_functional")
-                        or name == "shard_dim_alltoall"):
-                    if not name.startswith(("wait", "_wrap")):
-                        xs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
-                        c, b = tally.bytes.get(name, (0, 0))
-                        tally.bytes[name] = (c + 1, b + sum(x.numel() * x.element_size()
-                                                            for x in xs))
-                return out
-
-        self.bytes = {}
-        self.mode = Mode()
-
-    def __enter__(self):
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self.mode.__exit__(*exc)
-
-    def counts(self):
-        return {str(k).split(".")[-1]: v for k, v in self.mode.get_comm_counts().items()}
-
-
 def train_mesh_timed(torch, dev, mesh) -> dict:
     """h2o-danube-1.8b at its full config (bf16 activations over fp32
     masters, remat "full"), MESH_TRAIN_LAYERS deep, at [train]'s traffic (B
@@ -2409,6 +2398,7 @@ def train_mesh_timed(torch, dev, mesh) -> dict:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline, TokenPipelineState
+    from repro_torch.launch.dryrun import CollectiveTally
     from repro_torch.launch.steps import build_cell, run_cell, sharded_train_state
     from repro_torch.models import Model
     from repro_torch.models.config import ShapeSpec
@@ -2430,7 +2420,7 @@ def train_mesh_timed(torch, dev, mesh) -> dict:
                                + tree_leaves(state.opt.nu))
     pipe = TokenPipeline(cfg.vocab, TRAIN_T, TRAIN_B, seed=0, device=dev)
     ps = TokenPipelineState()
-    losses, times, tally = [], [], _CommTally()
+    losses, times, tally = [], [], CollectiveTally()
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(1 + MESH_TIMED):
         batch, ps = pipe.next_batch(ps)
@@ -2447,7 +2437,7 @@ def train_mesh_timed(torch, dev, mesh) -> dict:
                 init_peak_bytes=init_peak, state_bytes=state_bytes,
                 params=cfg.param_count(), step_s=times, losses=losses,
                 step_peak_bytes=torch.cuda.max_memory_allocated(dev),
-                comm_counts=tally.counts(), comm_bytes=tally.bytes)
+                comm=tally.result())
 
 
 def train_mesh_report(records, card):
@@ -2496,9 +2486,11 @@ def train_mesh_report(records, card):
         say("train_mesh", rank=rec["rank"], state_bytes=t["state_bytes"],
             init_s=f"{t['init_s']:.3f}", init_peak_bytes=t["init_peak_bytes"],
             step_peak_bytes=t["step_peak_bytes"], peak_bytes=rec["train_peak_bytes"])
-    say("train_mesh", collectives_one_step=json.dumps(t0["comm_counts"]),
-        input_bytes_one_step_rank0=json.dumps({k: {"calls": c, "bytes": b}
-                                               for k, (c, b) in t0["comm_bytes"].items()}))
+    comm = t0["comm"]
+    say("train_mesh", collectives_one_step_rank0=json.dumps(
+        {k: {"calls": comm[f"n_{k}"], "operand_bytes": comm[k]} for k in DRYRUN_KINDS}),
+        total_operand_bytes=comm["total"])
+    say("train_mesh", collectives_by_site_rank0=json.dumps(comm["by_site"]))
     check(all(math.isfinite(x) for x in t0["losses"]), f"[train_mesh] losses {t0['losses']}")
 
 
@@ -2666,6 +2658,169 @@ def train_mesh_cli_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def dryrun_worker() -> int:
+    """[dryrun_lm]'s records, in a process of its own on the host's CPU
+    (``chip_smoke.py --dryrun-worker``; its fake process groups must not
+    meet the card's ranks): run_cell of h2o-danube-1.8b's train, prefill and
+    decode cells on a fake 16 x 16 CPU world, run_cell_extrapolated of its
+    train cell and of DRYRUN_EXTRA_ARCH's, then the [train_mesh] cell on a
+    fake world of MESH_SHAPE's four ranks, its mesh on cuda as the real
+    one is (fake tensors: no device memory; DTensor routes some
+    redistributions by the mesh's device type). Prints one JSON line."""
+    faulthandler.dump_traceback_later(DRYRUN_TIMEOUT_S, exit=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (fake_world, lower_cell, run_cell,
+                                           run_cell_extrapolated)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import AdamWConfig
+
+    torch.set_num_threads(1)
+    out = {"cells": [], "extrapolated": []}
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        out["cells"].append(run_cell(TRAIN_ARCH, shape, False, depth=DRYRUN_DEPTH))
+    for arch in (TRAIN_ARCH, DRYRUN_EXTRA_ARCH):
+        out["extrapolated"].append(run_cell_extrapolated(arch, "train_4k", False))
+    t0 = time.perf_counter()
+    with fake_world(MESH_SHAPE[0] * MESH_SHAPE[1]):
+        mesh = make_test_mesh(*MESH_SHAPE, device_type="cuda")
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_TRAIN_LAYERS)
+        cell = build_cell(cfg, "train_4k", mesh,
+                          shape=ShapeSpec("train_mesh", TRAIN_T, TRAIN_B, "train"),
+                          opt_cfg=AdamWConfig(**TRAIN_OPT))
+        out["mesh"] = lower_cell(cell)
+    out["mesh"]["seconds"] = time.perf_counter() - t0
+    for rec in out["cells"] + out["extrapolated"]:
+        if rec.get("status") == "OK":
+            rec.pop("traceback", None)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def dryrun_start():
+    """Start [dryrun_lm]'s worker beside the card's phases (it runs on one
+    host core); its output goes to build/dryrun_worker.*."""
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker"],
+                            cwd=ROOT, env=env, stdout=open(work / "dryrun_worker.out", "w"),
+                            stderr=open(work / "dryrun_worker.err", "w"))
+
+
+def dryrun_lm_phase(proc, mesh_comm, card):
+    """[dryrun_lm] and [dryrun_vs_mesh]: wait for the worker, then hold its
+    records: the cells OK, h2o-danube-1.8b train_4k's argument bytes the
+    reference's, its extrapolated FLOPs x 256 within DRYRUN_FLOPS_RTOL of
+    ``train_flops``, and the [train_mesh] cell's dry-run collectives equal,
+    kind by kind in calls and operand bytes, to what the real warm-up step
+    tallied on rank 0."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        proc.kill()
+    waited = time.perf_counter() - t0
+    work = ROOT / "build"
+    err = (work / "dryrun_worker.err").read_text()
+    lines = [ln for ln in (work / "dryrun_worker.out").read_text().splitlines()
+             if ln.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        print(f"[dryrun_lm] worker exited {rc}:\n{err[-3000:]}", file=sys.stderr, flush=True)
+    check(rc == 0 and len(lines) == 1, f"[dryrun_lm] the worker failed (rc {rc})")
+    (work / "dryrun_worker.out").unlink()
+    (work / "dryrun_worker.err").unlink()
+    out = json.loads(lines[0])
+    say("dryrun_lm", card=json.dumps(card), world="fake, 256 ranks (16 x 16) on the host CPU",
+        waited_s=f"{waited:.3f}")
+    for rec in out["cells"] + out["extrapolated"]:
+        coll = rec.get("collectives", {})
+        say("dryrun_lm", arch=rec["arch"], shape=rec["shape"], status=rec["status"],
+            depth=rec.get("depth", "extrapolated" if rec.get("extrapolated") else None),
+            seconds=rec.get("seconds"), argument_bytes=rec.get("memory", {}).get(
+                "argument_bytes"), flops_per_device=rec.get("cost", {}).get("flops"),
+            bytes_accessed=rec.get("cost", {}).get("bytes accessed"),
+            collective_bytes=coll.get("total"), error=json.dumps(rec.get("error")))
+        if coll.get("by_site"):
+            say("dryrun_lm", arch=rec["arch"], shape=rec["shape"],
+                collectives_by_site=json.dumps(coll["by_site"]))
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in out["cells"] + out["extrapolated"]
+           if r["status"] != "OK"]
+    check(not bad, f"[dryrun_lm] cells failed: {bad}")
+    train = out["cells"][0]
+    check(train["memory"]["argument_bytes"] == DRYRUN_TRAIN_ARGS,
+          f"[dryrun_lm] {TRAIN_ARCH} train_4k argument bytes "
+          f"{train['memory']['argument_bytes']} != {DRYRUN_TRAIN_ARGS}")
+    want = train_flops(get_config(TRAIN_ARCH), 256, 4096)["total"]
+    got = out["extrapolated"][0]["cost"]["flops"] * 256
+    say("dryrun_lm", check="extrapolated per-device FLOPs x 256 vs train_flops",
+        arch=TRAIN_ARCH, dry_run=f"{got:.6e}", analytic=f"{want:.6e}",
+        rel_diff=f"{got / want - 1:.4e}", rtol=DRYRUN_FLOPS_RTOL)
+    check(abs(got / want - 1) <= DRYRUN_FLOPS_RTOL,
+          f"[dryrun_lm] FLOPs {got:.6e} vs analytic {want:.6e}")
+
+    dry = out["mesh"]["collectives"]
+    rows = {k: {"dry_calls": dry[f"n_{k}"], "card_calls": mesh_comm[f"n_{k}"],
+                "dry_bytes": dry[k], "card_bytes": mesh_comm[k]} for k in DRYRUN_KINDS}
+    say("dryrun_vs_mesh", cell=f"{TRAIN_ARCH} {MESH_TRAIN_LAYERS} layers B={TRAIN_B} "
+        f"T={TRAIN_T} mesh={MESH_SHAPE}",
+        world="fake, 4 ranks, a cuda mesh of fake tensors (host CPU) vs [train_mesh] warm-up "
+        "step, rank 0 (card)", seconds=f"{out['mesh']['seconds']:.3f}",
+        flops_per_device=out["mesh"]["flops"], kinds=json.dumps(rows))
+    say("dryrun_vs_mesh", dry_by_site=json.dumps(dry["by_site"]),
+        card_by_site=json.dumps(mesh_comm["by_site"]))
+    check(all(r["dry_calls"] == r["card_calls"] and r["dry_bytes"] == r["card_bytes"]
+              for r in rows.values()),
+          f"[dryrun_vs_mesh] the dry run's collectives differ from the card's: {rows}")
+
+
+def dryrun_device_phases(torch, dev, n, kernels) -> dict:
+    """[dryrun_ann], [dryrun_queue], [dryrun_external] on the card: the
+    hillclimb's C0 record (its real reduced shard), the queue's warm-up per
+    rung at the script's n, the external-store cell on aio; each path's
+    kernel launches (counts 0 before, read after)."""
+    from repro_torch.launch.dryrun import run_ann_cell, run_external_store_cell, run_queue_cell
+
+    by_path = {}
+    for name, run in (
+            ("dryrun_ann", lambda: run_ann_cell(False, tag="C0_baseline", device=dev)),
+            ("dryrun_queue", lambda: run_queue_cell(n=n, device=dev)),
+            ("dryrun_external", lambda: run_external_store_cell(store="aio", device=dev))):
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        rec = run()
+        torch.cuda.synchronize()
+        launches = {kern.name: kern.launches for kern in kernels}
+        by_path[name] = launches
+        rec.pop("rungs", None) if name != "dryrun_external" else None
+        if rec["status"] != "OK":
+            print(f"[{name}] {rec.get('traceback', '')}", file=sys.stderr, flush=True)
+        check(rec["status"] == "OK", f"[{name}] {rec.get('error')}")
+        brief = {k: rec[k] for k in ("arch", "shape", "mesh") if k in rec}
+        say(name, record=json.dumps(brief), launches=json.dumps(launches),
+            seconds=f"{time.perf_counter() - t0:.3f}")
+        say(name, fields=json.dumps({k: v for k, v in rec.items()
+                                     if k not in brief and k != "traceback"}))
+        if name == "dryrun_ann":
+            check(rec["result"]["rows"] == 1024 and rec["memory"]["temp_bytes"] is not None,
+                  f"[dryrun_ann] {rec['result']} {rec['memory']}")
+        elif name == "dryrun_queue":
+            check(all(launches[k] > 0 for k in QUERY_KERNELS),
+                  f"[dryrun_queue] the warm-ups launched {launches}")
+        else:
+            check(rec["io"]["counters_agree"] and launches["lsh_hash"] > 0
+                  and launches["l2_distance"] > 0,
+                  f"[dryrun_external] {rec['io']} {launches}")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database size")
@@ -2676,7 +2831,11 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # one rank of [sharded_ranks]
     ap.add_argument("--mesh-worker", dest="mesh_worker", default=None,
                     help=argparse.SUPPRESS)   # one rank of [train_mesh] or [serve_mesh]
+    ap.add_argument("--dryrun-worker", dest="dryrun_worker", action="store_true",
+                    help=argparse.SUPPRESS)   # [dryrun_lm]'s fake worlds
     args = ap.parse_args(argv)
+    if args.dryrun_worker:
+        return dryrun_worker()
     if args.rank_worker is not None:
         return rank_worker(json.loads(args.rank_worker))
     if args.mesh_worker is not None:
@@ -2717,6 +2876,9 @@ def main(argv=None) -> int:
     for kname in kernel_names():
         for e in ptxas_report(library_path(kname).with_suffix(".log").read_text()):
             say("build", kernel=kname, **e)
+    # [dryrun_lm]'s fake worlds run on the host beside the card's phases
+    dry_proc = dryrun_start()
+    atexit.register(dry_proc.kill)
 
     t0 = time.perf_counter()
     ds = make_dataset("sift", n=args.n, n_queries=N_QUERIES, seed=0)
@@ -2900,6 +3062,13 @@ def main(argv=None) -> int:
     say("qalsh", seconds=f"{time.perf_counter() - t_phase:.3f}")
     torch.cuda.empty_cache()
 
+    # ---- [dryrun_ann], [dryrun_queue], [dryrun_external]: the dry run's
+    # device cells on the card --------------------------------------------
+    t_phase = time.perf_counter()
+    by_path.update(dryrun_device_phases(torch, dev, args.n, KERNELS))
+    torch.cuda.empty_cache()
+    say("dryrun_device", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
     # ---- [lm] and [lm_reduced]: LM serving with the retrieval hook ----------
     t_phase = time.perf_counter()
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
@@ -2927,7 +3096,12 @@ def main(argv=None) -> int:
 
     # ---- [train_mesh], [serve_mesh], [train_mesh_cli]: the LM steps over a
     # (data, model) DeviceMesh of four ranks sharing the card ---------------
-    mesh_phases(smi.stdout.strip().splitlines()[0])
+    mesh_comm = mesh_phases(smi.stdout.strip().splitlines()[0])
+
+    # ---- [dryrun_lm], [dryrun_vs_mesh]: the worker's fake worlds ----------
+    t_phase = time.perf_counter()
+    dryrun_lm_phase(dry_proc, mesh_comm, smi.stdout.strip().splitlines()[0])
+    say("dryrun_lm", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
     kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
                      l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
     for rec in record:

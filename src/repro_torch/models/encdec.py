@@ -97,14 +97,13 @@ def encode(params, frames, cfg: ArchConfig):
 def _encoder_layer(lp, x, cfg: ArchConfig):
     dt = x.dtype
     h = L.norm_apply(lp["norm1"], x, cfg)
-    q, k, v = (torch.einsum("btd,dhk->bthk", h, lp["attn"][w].to(dt))
-               for w in ("wq", "wk", "wv"))
+    q, k, v = (L._project(h, lp["attn"][w]) for w in ("wq", "wk", "wv"))
     if cfg.attn_bias:
         q = q + lp["attn"]["bq"].to(dt)
         k = k + lp["attn"]["bk"].to(dt)
         v = v + lp["attn"]["bv"].to(dt)
     out = L.attention(q, k, v, causal=False)
-    y = torch.einsum("bthk,hkd->btd", out, lp["attn"]["wo"].to(dt))
+    y = L._unproject(out, lp["attn"]["wo"])
     if cfg.attn_bias:
         y = y + lp["attn"]["bo"].to(dt)
     x = x + y
@@ -114,8 +113,8 @@ def _encoder_layer(lp, x, cfg: ArchConfig):
 
 def _cross_kv(lp, enc_out, cfg):
     dt = enc_out.dtype
-    k = torch.einsum("btd,dhk->bthk", enc_out, lp["cross_attn"]["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", enc_out, lp["cross_attn"]["wv"].to(dt))
+    k = L._project(enc_out, lp["cross_attn"]["wk"])
+    v = L._project(enc_out, lp["cross_attn"]["wv"])
     if cfg.attn_bias:
         k = k + lp["cross_attn"]["bk"].to(dt)
         v = v + lp["cross_attn"]["bv"].to(dt)

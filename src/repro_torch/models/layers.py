@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .sharding import local_map, mesh_size_of
+from .sharding import local_map, mesh_size_of, reduced
 
 __all__ = [
     "init_norm", "norm_apply", "init_embedding", "rope", "sincos_positions",
@@ -178,9 +178,44 @@ def _qk_norm(x, scale, eps):
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def _heads_in(x, w):
+    return torch.einsum("btd,dhk->bthk", x, w)
+
+
+def _heads_out(o, w):
+    return torch.einsum("bthk,hkd->btd", o, w)
+
+
+# Over a mesh the projections run on local blocks (``local_map``), rows
+# over dp and heads over tp, each weight gathered over fsdp: each rank
+# computes its own heads (Megatron's column- and row-parallel products). Left
+# to DTensor's own einsum, torch 2.11-2.13 shards the flattened (heads x
+# head_dim) output over tp where tp does not divide H and then cannot
+# unflatten it ("Cannot unflatten unevenly sharded tensor"), and its
+# backward computes each weight's whole gradient on every tp rank. Where tp
+# does not divide H the heads' axis is dropped: the weight is gathered whole
+# and every tp rank computes all H heads of its rows.
+
 def _project(x, w):
-    """x [B, T, d] @ w [d, H, hd] -> [B, T, H, hd] in x's dtype."""
-    return torch.einsum("btd,dhk->bthk", x, w.to(x.dtype))
+    """x [B, T, d] @ w [d, H, hd] -> [B, T, H, hd] in x's dtype (the
+    attention projections of every family)."""
+    w = w.to(x.dtype)
+    if mesh_size_of(w, "tp"):
+        return local_map(_heads_in, (x, w), (("dp", None, None), (None, "tp", None)),
+                         ("dp", None, "tp", None), site="head_projection")
+    return _heads_in(x, w)
+
+
+def _unproject(o, w):
+    """o [B, T, H, hd] @ w [H, hd, d] -> [B, T, d] in o's dtype (the output
+    projection); over a mesh on local blocks as ``_project``, its heads'
+    partial sums over tp summed at once (``reduced``)."""
+    w = w.to(o.dtype)
+    if mesh_size_of(w, "tp"):
+        return reduced(local_map(_heads_out, (o, w), (("dp", None, "tp", None),
+                                                      ("tp", None, None)),
+                                 ("dp", None, None), partial="tp", site="head_projection"))
+    return _heads_out(o, w)
 
 
 def _project_q(p, x, cfg):
@@ -192,13 +227,36 @@ def _project_q(p, x, cfg):
     return q
 
 
-def _project_qkv(p, x, cfg, positions):
+def _kv_spread(p, cfg, x):
+    """The K and V weights (and biases), each KV head repeated tp / KV times
+    over a mesh whose tp the KV heads do not divide but the query heads do
+    (and KV divides tp): tp heads, one a tp rank, which the local
+    projection computes once each instead of every rank all KV heads.
+    Query head h reads spread head h // (H / tp), a copy of KV head
+    h // (H / KV), as in one process. Without a mesh: the weights."""
+    tp, KV = mesh_size_of(x, "tp"), cfg.n_kv
+    names = ("wk", "wv") + (("bk", "bv") if cfg.attn_bias else ())
+    if not tp or KV % tp == 0 or tp % KV or cfg.n_heads % tp:
+        return {n: p[n] for n in names}
+    # spread head j' = KV head j' // (tp / KV), by a 0/1 product: its
+    # backward sums the copies' gradients by a product too (the backward of
+    # repeat_interleave views the tp heads as (KV, tp / KV), which DTensor
+    # cannot do to a dim sharded over tp)
+    spread = (torch.arange(KV)[:, None] == torch.arange(tp)[None, :] // (tp // KV))
+    return {n: torch.einsum("...kh,kt->...th", p[n], spread.to(p[n].dtype).to(p[n].device))
+            for n in names}
+
+
+def _project_qkv(p, x, cfg, positions, *, spread=False):
+    """``spread`` (a forward that writes no cache): K and V at tp heads over a
+    mesh (``_kv_spread``)."""
     dt = x.dtype
-    q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
+    kv = _kv_spread(p, cfg, x) if spread else p
+    q, k, v = _project(x, p["wq"]), _project(x, kv["wk"]), _project(x, kv["wv"])
     if cfg.attn_bias:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + kv["bk"].to(dt)
+        v = v + kv["bv"].to(dt)
     if cfg.use_qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
         k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
@@ -309,7 +367,7 @@ def _heads_local(fn, q, k, v, *rest):
         k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
     heads = ("dp", None, "tp", None)
     return local_map(fn, (q, k, v, *rest), (heads, heads, heads) + (("dp", None),) * len(rest),
-                     heads)
+                     heads, site="attention_core")
 
 
 def attention(q, k, v, *, causal=True, window=0):
@@ -347,14 +405,42 @@ def init_attn_cache(cfg, batch, seq, dtype, window=0, *, device="cpu"):
     )
 
 
+def _roll_slots(x, shift: int):
+    """``torch.roll(x, shift, dims=1)`` as two slices (DTensor in torch 2.11
+    has no sharding strategy for ``aten.roll``)."""
+    return torch.cat([x[:, x.shape[1] - shift:], x[:, :x.shape[1] - shift]], dim=1) \
+        if shift else x
+
+
+def _by_sequence(buf) -> bool:
+    """A DTensor cache whose slots lie over a mesh dim ("sp": its KV heads do
+    not divide tp)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(buf, DTensor) and any(isinstance(p, Shard) and p.dim == 1
+                                            for p in buf.placements)
+
+
+def _write_slot(buf, slot: int, new):
+    """buf[:, slot] = new[:, 0] in place. On a cache whose slots lie over a
+    mesh dim, a slice write would put the token at that index of every
+    rank's local block: the slot is picked by a mask over all S slots
+    instead (each rank rewrites its block)."""
+    if _by_sequence(buf):
+        hit = torch.arange(buf.shape[1], device=buf.device) == slot
+        buf.copy_(torch.where(hit[None, :, None, None], new.to(buf.dtype), buf))
+    else:
+        buf[:, slot] = new[:, 0].to(buf.dtype)
+
+
 def cache_update(cache: AttnCache, k_new, v_new) -> AttnCache:
     """Append k/v [B, 1, KV, hd]; ring-buffer write for SWA caches, else the
     slot clamps to S - 1."""
     pos = cache.length
     S = cache.k.shape[1]
     slot = pos % S if cache.window else min(pos, S - 1)
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    _write_slot(cache.k, slot, k_new)
+    _write_slot(cache.v, slot, v_new)
     return AttnCache(k=cache.k, v=cache.v, length=pos + 1, window=cache.window)
 
 
@@ -392,7 +478,7 @@ def attn_apply(p, x, cfg, *, positions=None, mode="train", use_rope=True,
             valid = cache_valid_mask(cache)
             new_cache = cache_update(cache, k, v)
             out = cached_attention(q, new_cache.k, new_cache.v, valid)
-        y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(dt))
+        y = _unproject(out, p["wo"])
         if cfg.attn_bias:
             y = y + p["bo"].to(dt)
         return y, new_cache
@@ -403,9 +489,10 @@ def attn_apply(p, x, cfg, *, positions=None, mode="train", use_rope=True,
         k, v, _ = kv_override
         out = attention(q, k, v, causal=False)
     else:
-        q, k, v = _project_qkv(p, x, cfg, positions if use_rope else None)
+        q, k, v = _project_qkv(p, x, cfg, positions if use_rope else None,
+                               spread=cache is None)
         out = attention(q, k, v, causal=True, window=cfg.swa_window)
-    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(dt))
+    y = _unproject(out, p["wo"])
     if cfg.attn_bias:
         y = y + p["bo"].to(dt)
     if mode == "prefill" and cache is not None and kv_override is None:
@@ -414,10 +501,15 @@ def attn_apply(p, x, cfg, *, positions=None, mode="train", use_rope=True,
         if cache.window and T > slots:
             # ring layout: slot = pos % window (rolled[p % W] = token at p)
             roll = (T - slots) % slots
-            k_w = torch.roll(k[:, -slots:], roll, dims=1)
-            v_w = torch.roll(v[:, -slots:], roll, dims=1)
+            k_w = _roll_slots(k[:, -slots:], roll)
+            v_w = _roll_slots(v[:, -slots:], roll)
             cache.k.copy_(k_w)
             cache.v.copy_(v_w)
+        elif _by_sequence(cache.k):
+            # the prompt's slots, the rest zero, as one copy (a slice write
+            # would land at the same local index of every rank's block)
+            cache.k.copy_(F.pad(k.to(cache.k.dtype), (0, 0, 0, 0, 0, slots - T)))
+            cache.v.copy_(F.pad(v.to(cache.v.dtype), (0, 0, 0, 0, 0, slots - T)))
         else:
             cache.k.zero_()
             cache.v.zero_()
@@ -447,11 +539,21 @@ def act(x, kind):
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
+def _mlp(x, wi, wg, wo, *, kind):
+    h = x @ wi
+    h = act(h, kind) * (x @ wg) if wg is not None else act(h, kind)
+    return h @ wo
+
+
 def mlp_apply(p, x, cfg):
+    """Over a mesh on local blocks (as the attention projections): rows over
+    dp, the hidden dim over tp, the weights gathered over fsdp; the output's
+    partial sums over tp are summed at once (``reduced``)."""
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
-    if cfg.mlp_glu:
-        h = act(h, cfg.act) * (x @ p["wg"].to(dt))
-    else:
-        h = act(h, cfg.act)
-    return h @ p["wo"].to(dt)
+    w = [p["wi"].to(dt), p["wg"].to(dt) if cfg.mlp_glu else None, p["wo"].to(dt)]
+    fn = functools.partial(_mlp, kind=cfg.act)
+    if mesh_size_of(w[0], "tp"):
+        col = (None, "tp")
+        return reduced(local_map(fn, (x, *w), (("dp", None, None), col, col, ("tp", None)),
+                                 ("dp", None, None), partial="tp", site="mlp_block"))
+    return fn(x, *w)

@@ -168,7 +168,7 @@ def mamba2_apply(p, x, cfg, *, mode="train", cache: SSMCache | None = None):
 
     got = local_map(run, (x, *(p[n] for n in names), *state),
                     [("dp",)] + [()] * len(names) + [("dp",)] * len(state),
-                    [("dp",)] * (3 if keep else 1))
+                    [("dp",)] * (3 if keep else 1), site="mamba2_block")
     if not keep:
         return got[0], cache
     return got[0], SSMCache(state=got[1], conv=got[2], length=length[0])

@@ -88,7 +88,7 @@ def _expert_ffn(p, xb, cfg):
     w_in, w_out = (ep, None, inner), (ep, inner, None)
     return local_map(functools.partial(_expert_ffn_local, cfg=cfg),
                      (xb, p["wi"], p["wo"], p.get("wg")), (buf_axes, w_in, w_out, w_in),
-                     buf_axes, partial=inner)
+                     buf_axes, partial=inner, site="moe_local")
 
 
 def moe_apply(p, x, cfg):
@@ -96,7 +96,11 @@ def moe_apply(p, x, cfg):
     B, T, d = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     dt = x.dtype
-    logits = x.float() @ p["router"].float()    # bf16 compute weights promote, as in jnp
+    # bf16 compute weights promote, as in jnp; over a mesh on each rank's
+    # rows (DTensor's own product needs a data-dependent read in the
+    # router's weight gradient under fake tensors, the dry run's)
+    logits = local_map(_route_logits, (x, p["router"]), (("dp", None, None), (None, None)),
+                       ("dp", None, None), site="moe_local")
     probs = torch.softmax(logits, dim=-1)                       # [B, T, E]
     top_p, top_e = top_k_lower_index(probs, K)                  # [B, T, K]
     top_p = top_p / torch.clamp_min(top_p.sum(dim=-1, keepdim=True), 1e-9)
@@ -110,7 +114,7 @@ def moe_apply(p, x, cfg):
         # decode: dense-all-experts mask combine
         xb = x[:, None].expand(B, E, T, d)
         ye = _expert_ffn(p, xb, cfg)                            # [B, E, 1, d]
-        w = rows_local(functools.partial(_route_weights, E=E), top_e, top_p)
+        w = rows_local(functools.partial(_route_weights, E=E), top_e, top_p, site="moe_local")
         y = torch.einsum("bte,betd->btd", w.to(dt), ye)
         return y, aux
 
@@ -127,14 +131,20 @@ def moe_apply(p, x, cfg):
     # cannot shard: both run on each rank's own rows (the indices are
     # row-local: capacity is per sequence), so the router's outputs and x
     # are gathered over tp first (``rows_local``)
-    buf_c = rows_local(functools.partial(_dispatch, E=E, C=C, K=K), x, flat_e, pos_w)
+    buf_c = rows_local(functools.partial(_dispatch, E=E, C=C, K=K), x, flat_e, pos_w,
+                       site="moe_local")
     if cfg.moe_shard_capacity:
         # EP-over-capacity: the expert compute sharded along tp by the
         # capacity dim (the reference's moe.py hint)
         buf_c = shard_hint(buf_c, "dp", None, "tp", None)
     ye = _expert_ffn(p, buf_c, cfg)                             # [B, E, C, d]
-    y = rows_local(functools.partial(_combine, T=T, K=K), ye, flat_e, pos_w, flat_p, keep)
+    y = rows_local(functools.partial(_combine, T=T, K=K), ye, flat_e, pos_w, flat_p, keep,
+                   site="moe_local")
     return y, aux
+
+
+def _route_logits(x, router):
+    return x.float() @ router.float()
 
 
 def _route_weights(top_e, top_p, *, E):

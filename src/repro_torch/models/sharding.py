@@ -31,8 +31,9 @@ import torch
 
 __all__ = ["AxisRules", "AbstractMesh", "NamedSharding", "SINGLE_DEVICE_RULES",
            "logical_spec", "named_sharding", "placements_for", "set_active_rules",
-           "active_rules", "on_mesh", "shard_hint", "replicated", "local_map",
-           "mesh_size_of", "rows_local", "divisible", "axis_size"]
+           "active_rules", "on_mesh", "shard_hint", "replicated", "reduced", "local_map",
+           "mesh_size_of", "rows_local", "divisible", "axis_size", "SITES", "at_site",
+           "current_site", "labelling"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +174,11 @@ def _even_spec(shape, logical, rules, mesh) -> tuple:
                  for dim, p in zip(shape, spec))
 
 
-def shard_hint(x, *logical):
+def shard_hint(x, *logical, site: str = "shard_hint"):
     """Redistribute a DTensor to the placements of its logical axes; the
     identity with no rules active, on a plain tensor, or when every axis
-    resolves to None. An axis that does not divide its dim is dropped."""
+    resolves to None. An axis that does not divide its dim is dropped. Its
+    collectives count under ``site`` (``at_site``)."""
     rules = _ACTIVE_RULES[0]
     if rules is None:
         return x
@@ -187,17 +189,32 @@ def shard_hint(x, *logical):
     spec = _even_spec(x.shape, logical, rules, x.device_mesh)
     if all(s is None for s in spec):
         return x
-    return x.redistribute(x.device_mesh, placements_for(x.device_mesh, spec))
+    return at_site(site, lambda t: t.redistribute(t.device_mesh,
+                                                  placements_for(t.device_mesh, spec)), x)
 
 
-def replicated(x):
+def reduced(x, *, site: str = "row_parallel"):
+    """A DTensor whose partial sums are summed (each ``Partial`` mesh dim
+    made ``Replicate``, its shards kept); a plain tensor, or one with no
+    partial sum, as it is. Its collectives count under ``site``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(x, DTensor) or not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    place = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return at_site(site, lambda t: t.redistribute(t.device_mesh, place), x)
+
+
+def replicated(x, *, site: str = "shard_hint"):
     """A DTensor redistributed to be whole on every rank (an all-gather of
-    its shards); a plain tensor as it is."""
+    its shards); a plain tensor as it is. Its collectives count under
+    ``site``."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return at_site(site, lambda t: t.redistribute(t.device_mesh,
+                                                  [Replicate()] * t.device_mesh.ndim), x)
 
 
 def mesh_size_of(x, logical: str) -> int:
@@ -211,7 +228,8 @@ def mesh_size_of(x, logical: str) -> int:
     return (_ACTIVE_RULES[0] or AxisRules.make(mesh)).mesh_size(logical, mesh)
 
 
-def local_map(fn, args, in_axes, out_axes, *, partial: Optional[str] = None):
+def local_map(fn, args, in_axes, out_axes, *, partial: Optional[str] = None,
+              site: Optional[str] = None):
     """``fn`` over each rank's own blocks: torch's
     ``torch.distributed.tensor.experimental.local_map`` with logical axes.
     With DTensor arguments, argument i is redistributed to the placements of
@@ -228,7 +246,11 @@ def local_map(fn, args, in_axes, out_axes, *, partial: Optional[str] = None):
     they are. With plain tensors (one process) it is ``fn(*args)``. For
     ops that DTensor cannot shard, or shards in a layout whose view or
     backward fails, or loops of small ops whose dispatch over DTensors
-    costs more than their work."""
+    costs more than their work. Its collectives count under ``site``
+    (``at_site``)."""
+    if site is not None:
+        return at_site(site, lambda *a: local_map(fn, a, in_axes, out_axes, partial=partial),
+                       *args)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map as torch_local_map
 
@@ -272,12 +294,12 @@ def local_map(fn, args, in_axes, out_axes, *, partial: Optional[str] = None):
                            redistribute_inputs=True)(*(args[i] for i in slots))
 
 
-def rows_local(fn, *args):
+def rows_local(fn, *args, site: Optional[str] = None):
     """``fn`` over each rank's own batch rows: ``local_map`` with every
     argument and output split by its leading dim over dp, replicated over
     the other mesh dims. For a scatter or gather by computed indices, which
     DTensor cannot shard, whose indices are row-local."""
-    return local_map(fn, args, [("dp",)] * len(args), ("dp",))
+    return local_map(fn, args, [("dp",)] * len(args), ("dp",), site=site)
 
 
 def named_sharding(mesh, axes: Sequence[Optional[str]],
@@ -294,3 +316,74 @@ def divisible(dim: int, logical: str, mesh, rules: Optional[AxisRules]) -> bool:
         return True
     rules = rules or AxisRules.make(mesh)
     return dim % rules.mesh_size(logical, mesh) == 0
+
+
+# ---------------------------------------------------------------------------
+# explicit redistribution sites, labelled for a collective tally
+# ---------------------------------------------------------------------------
+
+# The sites where the port redistributes or runs local blocks itself (PERF.md
+# lists them), numbered as there; "shard_hint" is the reference's hints and
+# every collective outside a site is DTensor's own propagation.
+SITES = ("embed_table", "gold_logit", "grad_placement", "microbatch_rows", "attention_core",
+         "mamba2_block", "moe_local", "grad_norm", "head_projection", "mlp_block",
+         "row_parallel", "shard_hint")
+_SITE: list = [None]        # the site collectives are counted under now
+_LISTENERS: list = [0]      # tallies listening: without one a site is a plain call
+
+
+def current_site() -> Optional[str]:
+    """The site whose collectives run now (None: DTensor's propagation)."""
+    return _SITE[0]
+
+
+@contextlib.contextmanager
+def labelling():
+    """Sites label their collectives for the body (a tally's window)."""
+    _LISTENERS[0] += 1
+    try:
+        yield
+    finally:
+        _LISTENERS[0] -= 1
+        if not _LISTENERS[0]:
+            _SITE[0] = None
+
+
+class _Label(torch.autograd.Function):
+    """The identity, whose backward sets the current site: marks placed on
+    a site's outputs set it as the backward enters the site, and marks on
+    its inputs restore the outer one as the backward leaves it (the engine
+    runs a site's nodes, recorded between the two marks, between them)."""
+
+    @staticmethod
+    def forward(ctx, label, x):
+        ctx.label = label
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _SITE[0] = ctx.label
+        return None, g
+
+
+def _mark(x, label):
+    if torch.is_tensor(x) and x.requires_grad and torch.is_grad_enabled():
+        return _Label.apply(label, x)
+    return x
+
+
+def at_site(name: str, fn, *args):
+    """``fn(*args)``, its collectives (forward and backward) counted under
+    ``name`` while a tally listens (``labelling``); else just the call."""
+    if not _LISTENERS[0]:
+        return fn(*args)
+    outer = _SITE[0]
+    args = tuple(_mark(a, outer) for a in args)
+    _SITE[0] = name
+    try:
+        out = fn(*args)
+    finally:
+        _SITE[0] = outer
+    if isinstance(out, (tuple, list)):
+        return type(out)(_mark(o, name) for o in out)
+    return _mark(out, name)

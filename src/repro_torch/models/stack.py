@@ -204,7 +204,7 @@ def embed_tokens(params, tokens, cfg: ArchConfig):
     # sharded by vocab leaves DTensor a masked partial sum, which it cannot
     # reduce when d shares a mesh dim with the tokens' rows, nor take a
     # partial gradient back into in a microbatched backward
-    table = replicated(params["embed"]["table"])
+    table = replicated(params["embed"]["table"], site="embed_table")
     x = F.embedding(tokens.long(), table).to(cfg.activation_dtype)
     return shard_hint(x, "dp", None, None)
 

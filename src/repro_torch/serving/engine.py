@@ -350,15 +350,15 @@ class BatchQueue:
         self._closed = True
 
     # -- warm-up --------------------------------------------------------------
-    def warmup(self) -> None:
-        """Run every ladder rung once up front (not counted by the dispatch
-        probe). The dummy rows are live (valid) far-away points that match
+    def warmup(self, rungs: Optional[Sequence[int]] = None) -> None:
+        """Run every ladder rung (or those of ``rungs``) once up front (not
+        counted by the dispatch probe). The dummy rows are live (valid) far-away points that match
         nothing, so every plan runs its WHOLE radius schedule here: the first
         call of each kernel loads its library (and builds it if needed), the
         index's hash pack is built, and the caching allocator holds every
         rung's buffers before the first real tick."""
         dev = self.engine.device
-        for shape in self.ladder:
+        for shape in self.ladder if rungs is None else rungs:
             self._fn(torch.full((shape, self._d), 1e6, dtype=torch.float32, device=dev),
                      torch.ones((shape,), dtype=torch.bool, device=dev))
             _sync(dev)

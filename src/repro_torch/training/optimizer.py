@@ -17,6 +17,8 @@ from typing import Any
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..models.sharding import at_site
+
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
            "lr_at", "global_norm", "clip_by_global_norm", "tree_leaves", "tree_unflatten",
            "tree_map"]
@@ -93,7 +95,8 @@ def global_norm(tree) -> torch.Tensor:
     all-reduced over its shards, so the norm is the global one, a plain
     tensor equal on every rank."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    sums = [s.full_tensor() if isinstance(s, DTensor) else s for s in sums]
+    sums = at_site("grad_norm", lambda *s: [x.full_tensor() if isinstance(x, DTensor) else x
+                                            for x in s], *sums)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 

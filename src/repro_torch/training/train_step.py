@@ -18,7 +18,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from ..models.model import Model
-from ..models.sharding import shard_hint
+from ..models.sharding import at_site, shard_hint
 from .optimizer import (AdamWConfig, OptState, adamw_update, init_opt_state, tree_leaves,
                         tree_unflatten)
 
@@ -50,7 +50,8 @@ def loss_fn(model: Model, params, batch, *, aux_weight: float = 0.01):
     logz = torch.logsumexp(logits, dim=-1)
     # over a mesh logits hold vocab over tp: the gathered gold logit is a
     # masked partial sum there, reduced at once (before it meets logz)
-    gold = shard_hint(torch.gather(logits, -1, targets[..., None]), "dp", None, None)[..., 0]
+    gold = shard_hint(torch.gather(logits, -1, targets[..., None]), "dp", None, None,
+                      site="gold_logit")[..., 0]
     nll = logz - gold
     mask = batch.get("mask")
     if mask is not None:
@@ -77,11 +78,16 @@ def loss_and_grads(model: Model, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in P]
     loss = loss_fn(model, tree_unflatten(params, leaves), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
-             for p, g in zip(P, grads)]
-    loss = loss.detach()
-    if isinstance(loss, DTensor):     # partial sums over dp: the global loss
-        loss = loss.full_tensor()
+
+    def place(loss, *grads):
+        grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+                 for p, g in zip(P, grads)]
+        loss = loss.detach()
+        if isinstance(loss, DTensor):     # partial sums over dp: the global loss
+            loss = loss.full_tensor()
+        return loss, grads
+
+    loss, grads = at_site("grad_placement", place, loss, *grads)
     return loss, tree_unflatten(params, grads)
 
 
@@ -92,7 +98,8 @@ def _chunks(batch, n):
     slice gathers the batch's rows: ints and a mask, a few bytes a token)."""
     B = batch["tokens"].shape[0]
     mb = B // n
-    return [{k: shard_hint(v[i * mb:(i + 1) * mb], "dp") for k, v in batch.items()}
+    return [{k: shard_hint(v[i * mb:(i + 1) * mb], "dp", site="microbatch_rows")
+             for k, v in batch.items()}
             for i in range(n)]
 
 

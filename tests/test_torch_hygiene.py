@@ -375,3 +375,39 @@ def test_multi_rank_serve_needs_a_card_unless_cpu(monkeypatch):
     with pytest.raises(ValueError, match="--store ram"):
         serve.main(["--mode", "ann", "--n", "100", "--device", "cpu", "--store", "mem"])
     assert not made and not dist.is_initialized()
+
+
+_DRYRUN = """
+import os, sys
+env = dict(os.environ)
+import repro_torch.launch.dryrun, repro_torch.launch.hillclimb
+assert dict(os.environ) == env, sorted(set(os.environ.items()) ^ set(env.items()))
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+print("ok")
+"""
+
+
+def test_dry_run_modules_load_no_jax_and_set_no_environment():
+    """launch.dryrun and launch.hillclimb import neither JAX nor the reference,
+    and set no environment variable on import (the reference's dry run sets
+    XLA_FLAGS there)."""
+    out = subprocess.run([sys.executable, "-c", _DRYRUN], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_dry_run_device_cells_never_fall_back_to_the_host():
+    """The queue, external-store and ANN-shard cells run on the card unless
+    asked for the CPU; without one they raise instead of recording a run."""
+    from repro_torch.launch import dryrun
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is taken")
+    for cell in (lambda: dryrun.run_queue_cell(n=1000),
+                 lambda: dryrun.run_external_store_cell(store="mem"),
+                 lambda: dryrun.run_ann_cell(False, shard_n=1000)):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            cell()

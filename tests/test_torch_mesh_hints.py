@@ -58,22 +58,22 @@ def test_hint_sites_leave_the_one_process_step_bit_equal(arch, monkeypatch):
     import repro_torch.models.sharding as SH
     real = SH.shard_hint
 
-    def counting(x, *axes):
+    def counting(x, *axes, **kw):
         calls.append(axes)
-        return real(x, *axes)
+        return real(x, *axes, **kw)
 
     for mod in (ST, ED, MOE, TS):
         monkeypatch.setattr(mod, "shard_hint", counting)
     with on_mesh(RULES):
         hinted = _run(model, params, batch)
     assert calls, "no hint site was reached"
-    identity = lambda x, *a: x          # noqa: E731
+    identity = lambda x, *a, **k: x     # noqa: E731
     for mod in (ST, ED, MOE, TS):
         monkeypatch.setattr(mod, "shard_hint", identity)
-    monkeypatch.setattr(ST, "replicated", lambda x: x)
+    monkeypatch.setattr(ST, "replicated", lambda x, **k: x)
     for mod in (L, M2, MOE):
         monkeypatch.setattr(mod, "local_map", lambda fn, args, *a, **k: fn(*args))
-    monkeypatch.setattr(MOE, "rows_local", lambda fn, *args: fn(*args))
+    monkeypatch.setattr(MOE, "rows_local", lambda fn, *args, **k: fn(*args))
     bare = _run(model, params, batch)
     for a, b, c in zip(plain, hinted, bare):
         assert torch.equal(a, b) and torch.equal(a, c)

@@ -5,6 +5,13 @@ model 2) mesh of four ``gloo`` ranks on the CPU: one spawn of four processes
 check in turn and rank 0 writes the results. ``_RANK`` also serves
 tests/test_torch_mesh_cells.py (build_cell's cells, the elastic checkpoint).
 
+* Meshes whose model dim does not divide a head count ((1, 4) and (2, 2)
+  against 4/2, 6/6 and 3/3 heads): train, prefill and decode against one
+  process at the same bounds.
+* ``launch.dryrun.CollectiveTally`` counts the same before and after
+  ``launch.mesh.sync_collectives`` swaps c10d calls in, and the dry run of a
+  train cell on a fake world counts what a real step of it tallied.
+
 * The train step of one reduced arch per family (h2o-danube-1.8b,
   granite-moe-3b-a800m, mamba2-1.3b, zamba2-2.7b, whisper-tiny), on the
   state and batch placed by their logical-axis specs (FSDP over data, TP
@@ -90,7 +97,7 @@ def grad_err(got, want):
                for a, b in zip(tree_leaves(got), tree_leaves(want)))
 
 
-def train_case(name, cfg, B, T, microbatch=0, planted=False):
+def train_case(name, cfg, B, T, microbatch=0, planted=False, mesh=mesh):
     # one process's gradients and step, then the same on the mesh, from
     # seed 0's state; the gradients of half the batch are the planted fault.
     # Under microbatch the whole batch's gradients are remat "full"'s: not
@@ -104,7 +111,9 @@ def train_case(name, cfg, B, T, microbatch=0, planted=False):
                                       {k: v[:B // 2] for k, v in batch.items()})[1]
     one, m1 = make_train_step(model, OPT, microbatch=microbatch)(s1, batch)
     state = init_train_state(model, torch.Generator(dev).manual_seed(0))
-    sh = named_shardings_for(state, train_state_logical(model.param_specs(2)), mesh, rules)
+    rules = AxisRules.make(mesh)
+    sh = named_shardings_for(state, train_state_logical(model.param_specs(
+        rules.mesh_size("tp", mesh))), mesh, rules)
     state = place_tree(state, sh)
     placed = place_tree(batch, named_shardings_for(batch, batch_logical(batch), mesh, rules))
     with on_mesh(rules):
@@ -175,6 +184,73 @@ if conf.get("cells"):
         tok = lg.argmax(-1).int()
     res["serve_cells"] = dict(err=max(errs), tokens_equal=all(same), cache_placed=cache_placed)
 
+def serve_case(name, cfg, mesh, B=4, T=64, S=80):
+    # prefill and 4 greedy decode steps of build_cell's cells against one
+    # process: logits of their max |.|, tokens equal
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    pre = build_cell(cfg, "prefill_32k", mesh, shape=ShapeSpec("prefill", S, B, "prefill"))
+    dec = build_cell(cfg, "decode_32k", mesh, shape=ShapeSpec("decode", S, B, "decode"))
+    batch = {"tokens": batch_for(cfg, B, T, seed=3)["tokens"]}
+    if cfg.family == "encdec":
+        batch["frames"] = batch_for(cfg, B, T, seed=3)["frames"]
+    lg, cache = model.prefill(params, batch, model.init_cache(B, S, torch.float32))
+    got, dcache = run_cell(pre, params, batch, model.init_cache(B, S, torch.float32))
+    errs, same = [float((got.full_tensor() - lg).abs().max() / lg.abs().max())], []
+    dparams = place_tree(params, dec.in_shardings[0])
+    tok = lg[:, -1:].argmax(-1).int()
+    for _ in range(4):
+        lg, cache = model.decode_step(params, tok, cache)
+        got, dcache = run_cell(dec, dparams, tok, dcache)
+        full = got.full_tensor()
+        errs.append(float((full - lg).abs().max() / lg.abs().max()))
+        same.append(bool(torch.equal(full.argmax(-1), lg.argmax(-1))))
+        tok = lg.argmax(-1).int()
+    res[name] = dict(err=max(errs), tokens_equal=all(same))
+
+
+if conf.get("narrow"):
+    # meshes whose tp does not divide a head count (the projections' local
+    # blocks): (1, 4) against the reduced h2o-danube-1.8b (4 heads, 2 KV)
+    # and 6 x 6 heads; (2, 2) against 3 x 3 heads, which DTensor's einsum
+    # could not unflatten before
+    narrow = {"1x4": make_test_mesh(1, 4, device_type=dev.type), "2x2": mesh}
+    six = dict(n_heads=6, n_kv=6)
+    three = dict(n_heads=3, n_kv=3, head_dim=16)
+    for tag, arch, heads in (("1x4", "h2o-danube-1.8b", {}), ("1x4", "whisper-tiny", six),
+                             ("2x2", "granite-moe-3b-a800m", three)):
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **heads)
+        name = f"narrow:{tag}:{arch}"
+        train_case(name + ":train", cfg, 4, 64, planted=True, mesh=narrow[tag])
+        serve_case(name + ":serve", cfg, narrow[tag])
+
+if conf.get("tally"):
+    # the collective tally: DTensor's functional collectives, then the same
+    # redistributions with sync_collectives' c10d kernels swapped in (last:
+    # the swap lasts for the process), count alike
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+    from repro_torch.launch.dryrun import CollectiveTally
+
+    def tallied():
+        x = distribute_tensor(torch.ones(16, 8), mesh, [Shard(0), Shard(1)], src_data_rank=None)
+        z = DTensor.from_local(torch.ones(16, 8), mesh, [Partial(), Replicate()])
+        with CollectiveTally() as t:
+            y = x.redistribute(mesh, [Replicate(), Replicate()])     # two all-gathers
+            z.redistribute(mesh, [Shard(0), Replicate()])             # a reduce-scatter
+        return t.result(), float(y.to_local().sum())
+
+    res["tally"] = dict(functional=tallied())
+    # one train step of a cell, tallied: the dry run of the same cell on a
+    # fake world of 4 must count the same
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    cell = build_cell(cfg, "train_4k", mesh, shape=ShapeSpec("t", 64, 4, "train"), opt_cfg=OPT)
+    state = init_train_state(Model(cfg, device=dev), torch.Generator(dev).manual_seed(0))
+    with CollectiveTally() as t:
+        run_cell(cell, state, batch_for(cfg, 4, 64, seed=1))
+    res["tally"]["step"] = t.result()
+    sync_collectives("cpu")
+    res["tally"]["c10d"] = tallied()
+
 if conf.get("checkpoint"):
     ck = CheckpointManager(out_dir + "/ckpt", async_save=False)
     ck.save(1, saved, extra={"pipeline": {"step": 1}})
@@ -227,10 +303,14 @@ def spawn(tmp, conf, timeout=300):
     return json.loads((tmp / "res.json").read_text())
 
 
+NARROW = ("1x4:h2o-danube-1.8b", "1x4:whisper-tiny", "2x2:granite-moe-3b-a800m")
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return spawn(tmp_path_factory.mktemp("mesh"),
-                  dict(device="cpu", family_archs=FAMILY_ARCHS, variants=VARIANTS))
+                  dict(device="cpu", family_archs=FAMILY_ARCHS, variants=VARIANTS, narrow=True,
+                       tally=True))
 
 
 def hold_step(r, what):
@@ -255,6 +335,53 @@ def test_gradient_check_fails_a_planted_fault(ranks, arch):
     the gradient bound: the check can fail."""
     r = ranks[f"{arch}:full"]
     assert r["planted"] > GRAD_TOL, r
+
+
+@pytest.mark.parametrize("case", NARROW)
+def test_heads_tp_does_not_divide_match_one_process(ranks, case):
+    """Meshes whose model dim does not divide a projection's head count: the
+    train step (gradients, grad norm, step) and the prefill and decode cells
+    equal one process, and the planted fault fails the gradient check."""
+    r = ranks[f"narrow:{case}:train"]
+    hold_step(r, case)
+    assert r["dgrad"] <= GRAD_TOL < r["planted"], r
+    s = ranks[f"narrow:{case}:serve"]
+    assert s["err"] < 2e-4 and s["tokens_equal"], s
+
+
+def test_collective_tally_counts_c10d_swap_as_functional(ranks):
+    """CollectiveTally counts the explicit c10d calls of
+    launch.mesh.sync_collectives as the functional collectives they stand
+    for: the same kinds, calls and operand bytes."""
+    (fn, fsum), (c10d, csum) = ranks["tally"]["functional"], ranks["tally"]["c10d"]
+    assert fn == c10d and fsum == csum == 128.0, (fn, c10d)
+    # [8, 4] fp32 gathered over one mesh dim, then [16, 4] or [8, 8] over the
+    # other; [16, 8] reduce-scattered
+    assert fn["n_all-gather"] == 2 and fn["n_reduce-scatter"] == 1, fn
+    assert fn["all-gather"] == 8 * 4 * 4 + 16 * 4 * 4 and fn["total"] == 896, fn
+
+
+def test_dry_run_counts_the_collectives_of_a_real_step(ranks):
+    """The dry run of a train cell (fake tensors on a fake world of 4) counts
+    the collectives, kind by kind in calls and operand bytes, that rank 0 of
+    the same cell's real step on four gloo ranks tallied."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import KINDS, fake_world, lower_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training import AdamWConfig
+
+    with fake_world(WORLD):
+        mesh = make_test_mesh(2, 2, device_type="cpu")
+        cell = build_cell(get_config("h2o-danube-1.8b", reduced=True), "train_4k", mesh,
+                          shape=ShapeSpec("t", 64, 4, "train"),
+                          opt_cfg=AdamWConfig(lr=1e-3, total_steps=10))
+        dry = lower_cell(cell)["collectives"]
+    real = ranks["tally"]["step"]
+    assert real["total"] > 0
+    assert {k: (dry[f"n_{k}"], dry[k]) for k in KINDS} == \
+        {k: (real[f"n_{k}"], real[k]) for k in KINDS}
 
 
 @pytest.mark.cuda
