@@ -57,8 +57,12 @@ start done, probe nothing, count zero I/O and report ``found=False``.
 
 Every ``SearchEngine.query`` call counts in ``e2lsh_query_calls_total{plan}``
 and, with tracing on, opens the root ``query`` span (plan, k) that the
-storage tier's spans hang from. ``make_plan_fn``'s closures over one index
-dispatch the plan body directly and record neither, as the reference's do.
+storage tier's spans hang from, with ``query.upload`` (the batch's copy to
+the device) under it. The fused plan's stages add ``query.hash`` (also under
+the external plan's set-up), ``query.init`` and, per radius ``t``,
+``query.sync``, ``query.probe`` and ``query.merge``. ``make_plan_fn``'s
+closures over one index dispatch the plan body directly and record no root
+span and no count, as the reference's do.
 """
 from __future__ import annotations
 
@@ -438,28 +442,42 @@ def hash_stage(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig):
     """Step 1 for the whole schedule: one lsh_hash launch hashes every radius,
     then the table lookups; the kernel reads the index's hash pack, built at
     its first batch. queries [Q, d] float32 -> (cnt_all, head_all, qfp_all)
-    [r, Q, L], contiguous (the probe kernel reads each radius' [Q, L] rows)."""
-    bucket_all, qfp_all = lsh_hash_all_radii(
-        queries, ix.a, ix.b, ix.rm, w=cfg.w, radii=cfg.radii, u=cfg.u,
-        fp_bits=cfg.fp_bits, pack=index_hash_pack(ix, w=cfg.w, radii=cfg.radii))
-    # the kernel's [N, r*L] outputs come as [r, N, L] views: one copy each
-    # per batch makes every radius' [Q, L] slices contiguous
-    cnt_all, head_all = table_lookup(ix, bucket_all.contiguous(), cfg)
-    return cnt_all, head_all, qfp_all.contiguous()
+    [r, Q, L], contiguous (the probe kernel reads each radius' [Q, L] rows).
+    With tracing on, the stage is the ``query.hash`` span."""
+    with get_tracer().span("query.hash"):
+        bucket_all, qfp_all = lsh_hash_all_radii(
+            queries, ix.a, ix.b, ix.rm, w=cfg.w, radii=cfg.radii, u=cfg.u,
+            fp_bits=cfg.fp_bits, pack=index_hash_pack(ix, w=cfg.w, radii=cfg.radii))
+        # the kernel's [N, r*L] outputs come as [r, N, L] views: one copy each
+        # per batch makes every radius' [Q, L] slices contiguous
+        cnt_all, head_all = table_lookup(ix, bucket_all.contiguous(), cfg)
+        return cnt_all, head_all, qfp_all.contiguous()
 
 
 def probe_stage(ix: IndexArrays, queries, qnorm2, cnt_all, head_all, qfp_all,
                 cfg: QueryConfig, valid=None):
     """Steps 2-3, radius by radius, until every query is done. Returns the
-    final search state."""
-    state = _init_state(queries.shape[0], cfg, queries.device, valid)
-    thresh2 = _thresholds(cfg, queries.device)
+    final search state.
+
+    With tracing on, the stage records ``query.init`` (the state and the
+    thresholds) and, for each radius ``t``, ``query.sync`` (the host blocked
+    on the early-exit read), ``query.probe`` (``probe_append`` and
+    ``l2_distance_by_id``) and ``query.merge`` (the top-k merge), each
+    carrying ``t``. No attribute reads the device."""
+    tracer = get_tracer()
+    with tracer.span("query.init"):
+        state = _init_state(queries.shape[0], cfg, queries.device, valid)
+        thresh2 = _thresholds(cfg, queries.device)
     for t in range(len(cfg.radii)):
-        if bool(state[2].all()):  # one host sync per radius: early exit
+        with tracer.span("query.sync", t=t):
+            done = bool(state[2].all())  # one host sync per radius: early exit
+        if done:
             break
-        cid, cd2, st = _probe_radius_fused(
-            ix, queries, qnorm2, cnt_all[t], head_all[t], qfp_all[t], cfg, ~state[2])
-        state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
+        with tracer.span("query.probe", t=t):
+            cid, cd2, st = _probe_radius_fused(
+                ix, queries, qnorm2, cnt_all[t], head_all[t], qfp_all[t], cfg, ~state[2])
+        with tracer.span("query.merge", t=t):
+            state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
     return state
 
 
@@ -666,11 +684,14 @@ class SearchEngine:
         """
         plan = plan or self.default_plan
         _QUERY_CALLS.inc(plan=plan)
-        with get_tracer().span("query", plan=plan, k=k):  # a no-op when tracing is off
+        tracer = get_tracer()
+        with tracer.span("query", plan=plan, k=k):  # a no-op when tracing is off
             run, target, cfg = self._resolve(plan, k=k, s_cap=s_cap, block_objs=block_objs,
                                              collect_probe_sizes=collect_probe_sizes,
                                              s_cap_per_shard=s_cap_per_shard)
-            return run(target, self._as_queries(queries), cfg, self._as_valid(valid))
+            with tracer.span("query.upload"):
+                queries, valid = self._as_queries(queries), self._as_valid(valid)
+            return run(target, queries, cfg, valid)
 
     def make_plan_fn(self, *, plan: Optional[str] = None, k: int = 1,
                      masked: bool = False, **kw):

@@ -1,6 +1,6 @@
-"""Telemetry for the query, storage and serving stack.
+"""Telemetry for the query, storage and serving stack (docs/torch_telemetry.md).
 
-* :mod:`registry` — process-wide metrics (counters, gauges, histograms with
+* :mod:`registry` — process-wide metrics (counters and histograms with
   labels). The block stores, the external plan and the serving queue
   register *collectors* over their own ledgers, so ``snapshot()`` reads
   ``StoreStats``, the external plan's rung totals and the queue's
@@ -25,13 +25,12 @@ Quickstart::
 from .export import (export_chrome_trace, export_jsonl, render_prometheus,
                      spans_to_chrome)
 from .http import MetricsServer
-from .registry import (Counter, DEFAULT_BUCKETS, Gauge, Histogram, Registry,
-                       get_registry)
+from .registry import Counter, DEFAULT_BUCKETS, Histogram, Registry, get_registry
 from .trace import (NOOP_SPAN, Span, TELEMETRY_ENV, Tracer, get_tracer, span,
                     telemetry_forced_off)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "Registry", "DEFAULT_BUCKETS",
+    "Counter", "Histogram", "Registry", "DEFAULT_BUCKETS",
     "get_registry", "Span", "Tracer", "get_tracer", "span", "NOOP_SPAN",
     "TELEMETRY_ENV", "telemetry_forced_off", "MetricsServer",
     "export_chrome_trace", "export_jsonl", "render_prometheus",

@@ -1,12 +1,12 @@
-"""Process-wide metrics registry: counters/gauges/histograms with labels,
+"""Process-wide metrics registry: counters and histograms with labels,
 a lock-free hot path, and pluggable collectors over the repo's existing
 ledgers.
 
 Two kinds of series feed one ``snapshot()``:
 
-* **Native instruments** — ``registry.counter(...)`` / ``gauge`` /
-  ``histogram``. The write path is lock-free under the GIL: each labeled
-  series keeps one accumulation cell *per writing thread* (registered once,
+* **Native instruments** — ``registry.counter(...)`` / ``histogram``. The
+  write path is lock-free under the GIL: each labeled series keeps one
+  accumulation cell *per writing thread* (registered once,
   under a lock, the first time that thread touches the series), and
   ``inc()``/``observe()`` mutate only the calling thread's cell — no
   contention, no atomics beyond the interpreter's own. ``snapshot()`` sums
@@ -23,7 +23,8 @@ thread's cell would race its ``+=``, and a collector's source ledger is not
 ours to clear. Instead the current sample set becomes the baseline and
 ``snapshot()`` subtracts it from every counter-typed series (clamped at 0 —
 a collector's object dying between reset and snapshot must not produce a
-negative counter). Gauges are instantaneous and never baselined.
+negative counter). Gauge-typed series, which collectors emit (the serving
+queue's depth and occupancy), are instantaneous and never baselined.
 """
 from __future__ import annotations
 
@@ -31,8 +32,7 @@ import threading
 from bisect import bisect_left
 from typing import Callable, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "get_registry",
-           "DEFAULT_BUCKETS"]
+__all__ = ["Counter", "Histogram", "Registry", "get_registry", "DEFAULT_BUCKETS"]
 
 # latency-flavored default bounds (ms); +Inf is implicit
 DEFAULT_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
@@ -120,29 +120,6 @@ class Counter(_Metric):
         with self._lock:
             items = list(self._children.items())
         return [dict(labels=dict(k), value=c.value()) for k, c in items]
-
-
-class Gauge(_Metric):
-    """Instantaneous value; ``set()`` takes the metric lock (not a hot
-    path — gauges describe state, counters describe flow)."""
-
-    kind = "gauge"
-
-    def _new_child(self):
-        return [0.0]
-
-    def set(self, v, **labels) -> None:
-        self._child_for(labels)[0] = float(v)
-
-    def inc(self, n=1, **labels) -> None:
-        child = self._child_for(labels)
-        with self._lock:
-            child[0] += n
-
-    def samples(self) -> list:
-        with self._lock:
-            items = list(self._children.items())
-        return [dict(labels=dict(k), value=c[0]) for k, c in items]
 
 
 class _HistCell:
@@ -242,8 +219,6 @@ class Registry:
     """Metric namespace + collector host. ``snapshot()`` is the one unified
     stat surface (see module docstring); ``reset()`` re-baselines it."""
 
-    _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
-
     def __init__(self):
         self._metrics: dict = {}
         self._collectors: dict = {}          # name -> zero-arg callable
@@ -263,9 +238,6 @@ class Registry:
 
     def counter(self, name, help="", labelnames=()) -> Counter:
         return self._make(Counter, name, help, labelnames)
-
-    def gauge(self, name, help="", labelnames=()) -> Gauge:
-        return self._make(Gauge, name, help, labelnames)
 
     def histogram(self, name, help="", labelnames=(),
                   buckets=None) -> Histogram:

@@ -275,6 +275,77 @@ def test_cuda_fused_matches_oracle_on_agreeing_rows():
     assert not differ.any(), f"rows {np.flatnonzero(differ)} differ from the oracle"
 
 
+_STAGES = ("query.upload", "query.hash", "query.init", "query.sync", "query.probe",
+           "query.merge")
+
+
+def _traced(fn, **enable):
+    """fn() with tracing on at sampling 1.0: (its result, the spans recorded)."""
+    from repro_torch import telemetry as tel
+    tel.reset()
+    tel.enable(sampling=1.0, **enable)
+    try:
+        return fn(), tel.get_tracer().spans()
+    finally:
+        tel.disable()
+        tel.get_tracer().configure(record_function=False)
+        tel.reset()
+
+
+@pytest.mark.parametrize("k,s_cap,rows", [(1, None, "near"), (5, 8, "near"),
+                                          (10, None, "near"), (1, None, "masked"),
+                                          (1, None, "far")])
+def test_fused_plan_spans_split_the_radius_loop(engine, clustered_data, k, s_cap, rows):
+    """One fused call records one upload, hash and init span, a probe and a
+    merge per radius run and a sync before each (the one that leaves early
+    included; none after the last radius of the schedule), all children of
+    the root ``query`` span inside its interval; results are the untraced
+    call's, and tracing off records nothing."""
+    from repro_torch import telemetry as tel
+
+    q = clustered_data["queries"] + (1e6 if rows == "far" else 0.0)  # far: no bucket holds it
+    valid = np.zeros(len(q), bool) if rows == "masked" else None
+    kw = dict(plan="fused", k=k, s_cap=s_cap, valid=valid)
+    res, spans = _traced(lambda: engine.query(q, **kw))
+    (root,) = [sp for sp in spans if sp.name == "query"]
+    by = {n: [sp for sp in spans if sp.name == n] for n in _STAGES}
+    assert [len(by[n]) for n in ("query.upload", "query.hash", "query.init")] == [1, 1, 1]
+    runs = int(res.radii_searched.max())
+    r = len(engine.config().radii)
+    if rows == "near":
+        assert 0 < runs < r        # the batch leaves early
+    else:
+        assert runs == {"masked": 0, "far": r}[rows]
+    assert len(by["query.probe"]) == len(by["query.merge"]) == runs
+    assert len(by["query.sync"]) == runs + (0 if runs == r else 1)
+    for n in ("query.sync", "query.probe", "query.merge"):
+        assert [sp.attrs["t"] for sp in by[n]] == list(range(len(by[n]))), n
+    for n in _STAGES:
+        for sp in by[n]:
+            assert sp.parent == root.sid, n
+            assert root.ts_ns <= sp.ts_ns and sp.ts_ns + sp.dur_ns <= root.ts_ns + root.dur_ns
+    _assert_identical(res, engine.query(q, **kw))
+    assert len(tel.get_tracer()) == 0
+
+
+def test_spans_open_profiler_ranges_with_record_function(engine, clustered_data):
+    """``enable(record_function=True)``: each recorded span is a
+    ``torch.profiler`` range, so a profile maps its operations to stages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = clustered_data["queries"][:16]
+
+    def run():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            engine.query(q, plan="fused", k=2)
+        return {ev.name for ev in prof.events()}
+
+    names, _ = _traced(run, record_function=True)
+    assert {"query", "query.hash", "query.probe", "query.merge"} <= names
+    names_off, _ = _traced(run)
+    assert not {"query.hash", "query.probe", "query.merge"} & names_off
+
+
 def _query_series(snap) -> dict:
     entry = snap.get("e2lsh_query_calls_total")
     if entry is None:
@@ -286,8 +357,9 @@ def test_query_telemetry_matches_reference(engine, built_index, clustered_data, 
     """After the same fused, oracle and external calls with tracing at
     sampling 1.0, the port's registry holds the reference's
     ``e2lsh_query_calls_total{plan}`` series and values, and its tracer the
-    reference's span names, the root ``query`` span included; every query
-    span carries its plan and k."""
+    reference's span names, the root ``query`` span included, plus the six
+    ``query.*`` stages of the port's host loop; every query span carries its
+    plan and k."""
     import jax.numpy as jnp
     from repro import telemetry as ref_tel
     from repro.core import SearchEngine as RefEngine
@@ -323,7 +395,9 @@ def test_query_telemetry_matches_reference(engine, built_index, clustered_data, 
             t.disable()
             t.reset()
     assert names["port"][0] == names["ref"][0] == {"fused": 2, "oracle": 1, "external": 1}
-    assert names["port"][1] == names["ref"][1]
+    # the reference's fused plan is one jitted dispatch with no host loop to split
+    assert not set(names["ref"][1]) & set(_STAGES)
+    assert names["port"][1] == sorted(set(names["ref"][1]) | set(_STAGES))
     assert "query" in names["port"][1]
 
 
