@@ -188,7 +188,7 @@ SRS_TPRIME = 400            # and its T' for SIFT, the paper harness's setting
 SRS_PARITY_Q = 32           # queries held to the same SRS run on the host
 QALSH_K = 64                # [qalsh]: lines, the paper harness's setting
 QALSH_Q = 16                # queries (the harness times QALSH on 16: it is slow)
-QUERY_KERNELS = ("lsh_hash", "bucket_probe", "l2_distance")
+QUERY_KERNELS = ("lsh_hash", "bucket_probe", "l2_distance", "topk_merge")
 LM_ARCH = "deepseek-7b"     # [lm]: its published config, nothing cut
 LM_B, LM_T, LM_STEPS = 2, 64, 8   # launch.serve's LM defaults
 LM_DSTORE = 5000            # datastore rows (launch.serve's default)
@@ -532,6 +532,8 @@ def external_phase(torch, engine, params, path, hdr, queries, kernels):
     say("external", launches=json.dumps(launches))
     check(launches["lsh_hash"] > 0 and launches["l2_distance"] > 0,
           f"plan=external did not launch its kernels: {launches}")
+    check(launches["topk_merge"] == launches["l2_distance"],
+          f"plan=external did not fold each rung by one merge launch: {launches}")
     check(launches["bucket_probe"] == 0 and launches["l2_distance_dense"] == 0,
           f"plan=external launched a kernel off its path: {launches}")
 
@@ -642,8 +644,10 @@ def serve_phase(torch, engine, queries_np, gt_dists, kernels):
         loads_after_warmup=len(stream_loads), launches=json.dumps(launches),
         launches_in_stream=json.dumps(grew))
     check(not stream_loads, f"kernel libraries loaded after the warm-up: {stream_loads}")
-    check(all(grew[n] > 0 for n in ("lsh_hash", "bucket_probe", "l2_distance")),
+    check(all(grew[n] > 0 for n in QUERY_KERNELS),
           f"the fused queue did not launch its kernels: {grew}")
+    check(grew["topk_merge"] == grew["bucket_probe"],
+          f"the fused queue did not fold each radius by one merge launch: {grew}")
     check(grew["l2_distance_dense"] == 0, "the fused queue launched the dense kernel")
     check(s["dispatches"] == s["ticks"] == queue.dispatch_count,
           f"dispatches {s['dispatches']} != ticks {s['ticks']}")
@@ -691,7 +695,7 @@ def serve_phase(torch, engine, queries_np, gt_dists, kernels):
     check(shed == qos["shed"], f"{shed} tickets raised DeadlineExceeded, the queue counts "
                                f"{qos['shed']}")
     check(shed > 0, f"no request was shed under a {SERVE_DEADLINE_MS} ms deadline")
-    check(all(launches[n] > 0 for n in ("lsh_hash", "bucket_probe", "l2_distance")),
+    check(all(launches[n] > 0 for n in QUERY_KERNELS),
           f"the QoS part did not launch its kernels: {launches}")
     check(s["dispatches"] == s["ticks"], "QoS: dispatches != ticks")
 
@@ -758,6 +762,8 @@ def external_serve_phase(torch, dev, path, queries_np, kernels):
             hot_rows=int(hot.size), metrics_line=json.dumps(scraped))
         check(all(launches[n] > 0 for n in ("lsh_hash", "l2_distance")),
               f"the external queue did not launch its kernels: {launches}")
+        check(launches["topk_merge"] == launches["l2_distance"],
+              f"the external queue did not fold each rung by one merge launch: {launches}")
         check(launches["bucket_probe"] == 0 and launches["l2_distance_dense"] == 0,
               f"the external queue launched a kernel off its path: {launches}")
         check(s["dispatches"] == s["ticks"] == queue.dispatch_count,
@@ -1384,14 +1390,22 @@ def dense_kernel_phase(torch, dev, flush):
     return worst, t_k, t_p, t_l, b_ms, b_by
 
 
+def merge_bound_ms(Q, k, sbuf, L):
+    """topk_merge's least time: the running top-k (ids and distances) in
+    and out, the candidates and their distances, the bucket sizes, the done
+    flag and the six counters read once; one compare an entry."""
+    return bound_ms(Q * (2 * k * 8 + sbuf * 8 + L * 4 + 2 + 10 * 4), Q * (k + sbuf))
+
+
 def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
     """``probe_append`` and ``l2_distance_by_id`` against their plain
     versions on radius 0 of the batch (the hash stage's real buckets, every
     query active, and the buffer the probe fills), plus ragged cases on
     radius 0 and the last radius: a lone query, inactive queries, L < 32, a
     budget that runs out inside a step, one and four chain steps, a strided
-    and a narrower buffer. Times both at radius 0 of the batch. Returns the
-    two kernels' records."""
+    and a narrower buffer. Times both at radius 0 of the batch, and
+    ``topk_merge`` folding that radius into a fresh state (``merge_phase``).
+    Returns the three kernels' records."""
     from repro_torch.core import query as tq
     from repro_torch.kernels import (INVALID, l2_distance_by_id, l2_distance_by_id_ref,
                                      probe_append, probe_append_ref)
@@ -1502,7 +1516,56 @@ def probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush):
                         replaces="src/repro/kernels/l2_distance/kernel.py:66",
                         launches=launches["l2_distance"], max_abs_err=worst, ms=t_k,
                         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    d2 = l2_distance_by_id(*dargs)
+    d2_last = l2_distance_by_id(queries, buf_last, ix.db, ix.db_norm2, qn2)
+    records.append(merge_phase(torch, cfg, (buf, d2, cnt, blocks, count),
+                               (buf_last, d2_last, last[0], blocks_last, count_last), t,
+                               launches, flush))
     return records
+
+
+def merge_phase(torch, cfg, radius0, radius_last, t_last, launches, flush):
+    """``topk_merge`` against its plain version, bit for bit, on the batch's
+    radius 0 (cand_id, cand_d2, cnt, blocks_read, count) folded into a fresh
+    state, on the last radius folded into the state radius 0 left (a third
+    of the rows done, the probe trace on), and on a lone row; then timed at
+    radius 0 of the batch, each timed call on a fresh copy of the state (the
+    kernel updates it in place). Returns its record."""
+    from repro_torch.core import query as tq
+    from repro_torch.kernels import topk_merge, topk_merge_ref
+
+    Q, dev = radius0[0].shape[0], radius0[0].device
+    thresh2 = tq._thresholds(cfg)
+    fresh = tq._init_state(Q, cfg, dev)
+    traced = tq._init_state(Q, cfg.replace(collect_probe_sizes=True), dev)
+    after0 = topk_merge_ref(traced, *radius0, t=0, thresh2=thresh2[0])
+    some_done = list(after0)
+    some_done[2] = after0[2] | (torch.arange(Q, device=dev) % 3 == 1)
+    cases = [("r0_batch", fresh, radius0, 0),
+             (f"r{t_last}_after_r0_third_done", tuple(some_done), radius_last, t_last),
+             ("r0_lone", tuple(x[:1] for x in fresh[:7]) + (fresh[7],),
+              tuple(x[:1] for x in radius0), 0)]
+    for label, state, radius, t in cases:
+        want = topk_merge_ref(state, *radius, t=t, thresh2=thresh2[t])
+        got = topk_merge(tuple(x.clone() for x in state), *radius, t=t, thresh2=thresh2[t])
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        say("topk_merge", case=label, Q=radius[0].shape[0], k=cfg.k, sbuf=radius[0].shape[1],
+            exact=same, done_after=int(got[2].sum()),
+            found_slots=int((got[0] != 2**31 - 1).sum()))
+        check(same, f"topk_merge disagrees with its plain version ({label})")
+    margs, mkw = radius0, dict(t=0, thresh2=thresh2[0])
+    copies = [tuple(x.clone() for x in fresh) for _ in range(40)]
+    t_k = median_ms(torch, lambda: topk_merge(copies.pop(), *margs, **mkw), flush=flush)
+    t_p = median_ms(torch, lambda: topk_merge_ref(fresh, *margs, **mkw), flush=flush)
+    L = radius0[2].shape[1]
+    b_ms, b_by = merge_bound_ms(Q, cfg.k, radius0[0].shape[1], L)
+    say("topk_merge", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}", Q=Q, k=cfg.k,
+        sbuf=radius0[0].shape[1], L=L, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bound_share=f"{b_ms / t_k:.3f}")
+    return dict(name="topk_merge", route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
+                replaces="none: the XLA merge of src/repro/core/query.py:355",
+                launches=launches["topk_merge"], max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def lm_kernel_checks(torch, dev, idx, hn, flush):
@@ -2911,8 +2974,10 @@ def main(argv=None) -> int:
     res1, times1 = timed_runs(torch, lambda: engine.query(queries[:1], plan="fused", k=K))
     launches = {kern.name: kern.launches for kern in KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    check(all(launches[k] > 0 for k in ("lsh_hash", "bucket_probe", "l2_distance")),
+    check(all(launches[k] > 0 for k in QUERY_KERNELS),
           f"a kernel of the main path never launched: {launches}")
+    check(launches["topk_merge"] == launches["bucket_probe"],
+          f"the fused plan did not fold each radius by one merge launch: {launches}")
     ratio = overall_ratio(res.dists.cpu().numpy(), ds.gt_dists[:, :K])
     Q = queries.shape[0]
     say("main", launches=json.dumps(launches),
@@ -3025,8 +3090,9 @@ def main(argv=None) -> int:
                        launches=launches["lsh_hash"], max_abs_err=float(worst), ms=t_k,
                        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
-    # the fused probe (bucket_probe.cu) and the distance epilogue
-    # (l2_distance.cu) at radius 0 of the batch, as the fused plan calls them
+    # the fused probe (bucket_probe.cu), the distance epilogue
+    # (l2_distance.cu) and the fold (topk_merge.cu) at radius 0 of the batch,
+    # as the fused plan calls them
     record += probe_kernel_phases(torch, dev, ix, queries, cfg, launches, flush)
 
     # l2_distance (dense): one block of the exact scan
@@ -3103,7 +3169,8 @@ def main(argv=None) -> int:
     dryrun_lm_phase(dry_proc, mesh_comm, smi.stdout.strip().splitlines()[0])
     say("dryrun_lm", phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
     kernel_of = dict(lsh_hash="lsh_hash", bucket_probe="bucket_probe",
-                     l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense")
+                     l2_distance_gathered="l2_distance", l2_distance_dense="l2_distance_dense",
+                     topk_merge="topk_merge")
     for rec in record:
         kernel = kernel_of[rec["name"]]
         rec["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()

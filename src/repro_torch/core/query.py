@@ -7,7 +7,7 @@ For each radius R in (1, c, c^2, ...):
      until S candidates are collected;
   3. distance-check the candidates against the DRAM-resident database
      (Step 3), merge them into the running top-k (dedup by id), and mark the
-     query done when k results lie within c*R.
+     query done when k results lie within c*R (the radius fold).
 
 One entry point over the plans of one single-device index:
 
@@ -19,14 +19,17 @@ One entry point over the plans of one single-device index:
   bucket's size and chain head in two gathers; a probe stage then runs the
   radius loop: per radius one ``probe_append`` launch reads the chain block
   rows under the S budget and appends the fingerprint matches to the
-  candidate buffer, and one ``l2_distance_by_id`` launch gathers the
-  candidates' rows and computes their distances.
+  candidate buffer, one ``l2_distance_by_id`` launch gathers the
+  candidates' rows and computes their distances, and one ``topk_merge``
+  launch folds them into the running top-k and the counters in place
+  (``_update_state``; on the CPU its plain version ``topk_merge_ref``).
   The loop leaves early when every query is done, which costs one
   ``done.all()`` device->host sync per radius (at most r): PyTorch runs
   eagerly, and without the sync every batch would pay for all r radii.
 * ``plan="oracle"`` — the reference: every radius run with done-masking,
-  per-radius plain hashing and a dense gather over the CSR view. Simple,
-  obviously correct, and the parity target of the fused plan.
+  per-radius plain hashing, a dense gather over the CSR view and the plain
+  fold ``topk_merge_ref`` on every device. Simple, obviously correct, and
+  the parity target of the fused plan.
 * ``plan="host"`` — the oracle's radius step, one call and one host sync per
   radius for the early exit: the pre-fusion host-driven loop, kept as a
   baseline of dispatch overhead. Same results as the oracle.
@@ -81,6 +84,8 @@ from ..kernels.l2_distance.ops import l2_distance_by_id
 from ..kernels.l2_distance.ref import l2_distance_by_id_ref
 from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_all_radii
 from ..kernels.lsh_hash.ref import lsh_hash_ref
+from ..kernels.topk_merge.ops import topk_merge
+from ..kernels.topk_merge.ref import topk_merge_ref
 from ..telemetry import get_registry, get_tracer
 
 __all__ = ["QueryConfig", "QueryResult", "SearchEngine", "fused_plan_body",
@@ -226,7 +231,8 @@ class QueryResult:
 def _probe_radius(ix: IndexArrays, queries, qnorm2, t: int, radius: float,
                   cfg: QueryConfig, active_q):
     """One (R, c)-NN probe for every query in the batch (ORACLE plan), over
-    the CSR view. Returns (cand_id [Q, SBUF], cand_d2 [Q, SBUF], stats)."""
+    the CSR view. Returns (cand_id [Q, SBUF], cand_d2 [Q, SBUF], cnt [Q, L],
+    blocks_read [Q], count [Q]): the fold's inputs."""
     Q = queries.shape[0]
     L, BLK, S, SBUF = cfg.L, cfg.block_objs, cfg.S, cfg.sbuf
     dev = queries.device
@@ -255,11 +261,7 @@ def _probe_radius(ix: IndexArrays, queries, qnorm2, t: int, radius: float,
             buf_id, count, eid.reshape(Q, L * BLK), ok.reshape(Q, L * BLK), S)
 
     d2 = l2_distance_by_id_ref(queries, buf_id, ix.db, ix.db_norm2, qnorm2)
-    stats = dict(nio_table=nonempty.sum(dim=1, dtype=torch.int32),
-                 nio_blocks=blocks_read, cands=count)
-    if cfg.collect_probe_sizes:
-        stats["probe_sizes"] = torch.where(nonempty, cnt, -1)
-    return buf_id, d2, stats
+    return buf_id, d2, cnt, blocks_read, count
 
 
 def _fused_sbuf(cfg: QueryConfig) -> int:
@@ -279,57 +281,25 @@ def _probe_radius_fused(ix: IndexArrays, queries, qnorm2, cnt, head, qfp,
     appended in the oracle's (step, l, slot) order; step 3 is one
     ``l2_distance_by_id`` launch over the buffer's ids. Candidates, their
     order and the I/O counts equal ``_probe_radius``'s: the block rows hold
-    the CSR chunks' entries.
+    the CSR chunks' entries. Returns (buf_id, d2, blocks_read, count); the
+    fold counts the hash-table reads from ``cnt``.
     """
     buf_id, count, blocks_read = probe_append(
         cnt, head, qfp, active_q, ix.ids_blocks, ix.fps_blocks, block_objs=cfg.block_objs,
         max_chain=cfg.max_chain, S=cfg.S, sbuf=_fused_sbuf(cfg))
     d2 = l2_distance_by_id(queries, buf_id, ix.db, ix.db_norm2, qnorm2)
-    nonempty = (cnt > 0) & active_q[:, None]
-    stats = dict(nio_table=nonempty.sum(dim=1, dtype=torch.int32),
-                 nio_blocks=blocks_read, cands=count)
-    if cfg.collect_probe_sizes:
-        stats["probe_sizes"] = torch.where(nonempty, cnt, -1)
-    return buf_id, d2, stats
+    return buf_id, d2, blocks_read, count
 
 
-def _merge_topk(best_id, best_d2, new_id, new_d2, k: int):
-    """Merge a candidate set into the running top-k with id dedup. Both sorts
-    are stable (INVALID = 2^31-1 sorts last), as jnp.argsort is."""
-    ids = torch.cat([best_id, new_id], dim=1)
-    d2 = torch.cat([best_d2, new_d2], dim=1)
-    order = torch.sort(ids, dim=1, stable=True).indices
-    ids_s = torch.gather(ids, 1, order)
-    d2_s = torch.gather(d2, 1, order)
-    dup = torch.zeros_like(ids_s, dtype=torch.bool)
-    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
-    dup &= ids_s != INVALID
-    d2_s = torch.where(dup, torch.inf, d2_s)
-    order2 = torch.sort(d2_s, dim=1, stable=True).indices[:, :k]
-    out_d2 = torch.gather(d2_s, 1, order2)
-    out_id = torch.gather(ids_s, 1, order2)
-    return torch.where(torch.isinf(out_d2), INVALID, out_id), out_d2
-
-
-def _update_state(state, cid, cd2, st, t: int, thresh2, cfg: QueryConfig):
-    """Fold one radius' probe results into the running state (done-masked)."""
-    best_id, best_d2, done, radii_searched, nio_t, nio_b, cands, probe_sizes = state
-    active_q = ~done
-    new_id, new_d2 = _merge_topk(best_id, best_d2, cid, cd2, cfg.k)
-    # queries already done keep their results (the paper reports at the first
-    # successful radius)
-    best_id = torch.where(done[:, None], best_id, new_id)
-    best_d2 = torch.where(done[:, None], best_d2, new_d2)
-    within = (best_d2 <= thresh2).sum(dim=1) >= cfg.k
-    radii_searched = radii_searched + active_q.to(torch.int32)
-    nio_t = nio_t + st["nio_table"]
-    nio_b = nio_b + st["nio_blocks"]
-    cands = cands + st["cands"]
-    if cfg.collect_probe_sizes:
-        probe_sizes = probe_sizes.clone()
-        probe_sizes[:, t, :] = torch.where(active_q[:, None], st["probe_sizes"], -1)
-    done = done | (within & active_q)
-    return best_id, best_d2, done, radii_searched, nio_t, nio_b, cands, probe_sizes
+def _update_state(state, cid, cd2, cnt, blocks_read, count, t: int, thresh2: float):
+    """Fold one radius' probe results into the running state (done-masked)
+    and return it: the fused and external plans' fold. ``topk_merge``
+    dispatches by device: on the card one launch of the ``topk_merge`` kernel
+    updates the state in place, on the CPU its plain version
+    ``topk_merge_ref`` returns a new one. The oracle and host plans call the
+    plain version directly, so they stay the fused plan's independent parity
+    target on the card."""
+    return topk_merge(state, cid, cd2, cnt, blocks_read, count, t=t, thresh2=thresh2)
 
 
 def _init_state(Q: int, cfg: QueryConfig, device, valid=None):
@@ -384,9 +354,11 @@ def _pad_min_q(queries, valid):
     return queries, valid, Q
 
 
-def _thresholds(cfg: QueryConfig, device) -> torch.Tensor:
-    return torch.tensor([(cfg.c * float(rad)) ** 2 for rad in cfg.radii],
-                        dtype=torch.float32, device=device)
+def _thresholds(cfg: QueryConfig) -> tuple:
+    """(c R_t)^2 for each radius, rounded to float32 (as the reference's
+    ``jnp.float32``) and held on the host: the fold takes it as an argument,
+    so no copy to the device and no sync."""
+    return tuple(float(np.float32((cfg.c * float(rad)) ** 2)) for rad in cfg.radii)
 
 
 # --------------------------------------------------------------------------
@@ -400,11 +372,10 @@ def oracle_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
     queries, valid, realQ = _pad_min_q(queries, valid)
     queries, qnorm2 = _prep_queries(queries)
     state = _init_state(queries.shape[0], cfg, queries.device, valid)
-    thresh2 = _thresholds(cfg, queries.device)
+    thresh2 = _thresholds(cfg)
     for t, radius in enumerate(cfg.radii):
-        cid, cd2, st = _probe_radius(ix, queries, qnorm2, t, float(radius), cfg,
-                                     ~state[2])
-        state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
+        probed = _probe_radius(ix, queries, qnorm2, t, float(radius), cfg, ~state[2])
+        state = topk_merge_ref(state, *probed, t=t, thresh2=thresh2[t])
     return _result_from_state(state, cfg, valid).slice_rows(0, realQ)
 
 
@@ -417,11 +388,10 @@ def host_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
     queries, valid, realQ = _pad_min_q(queries, valid)
     queries, qnorm2 = _prep_queries(queries)
     state = _init_state(queries.shape[0], cfg, queries.device, valid)
-    thresh2 = _thresholds(cfg, queries.device)
+    thresh2 = _thresholds(cfg)
     for t, radius in enumerate(cfg.radii):
-        cid, cd2, st = _probe_radius(ix, queries, qnorm2, t, float(radius), cfg,
-                                     ~state[2])
-        state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
+        probed = _probe_radius(ix, queries, qnorm2, t, float(radius), cfg, ~state[2])
+        state = topk_merge_ref(state, *probed, t=t, thresh2=thresh2[t])
         if bool(state[2].all()):
             break
     return _result_from_state(state, cfg, valid).slice_rows(0, realQ)
@@ -462,22 +432,24 @@ def probe_stage(ix: IndexArrays, queries, qnorm2, cnt_all, head_all, qfp_all,
     With tracing on, the stage records ``query.init`` (the state and the
     thresholds) and, for each radius ``t``, ``query.sync`` (the host blocked
     on the early-exit read), ``query.probe`` (``probe_append`` and
-    ``l2_distance_by_id``) and ``query.merge`` (the top-k merge), each
-    carrying ``t``. No attribute reads the device."""
+    ``l2_distance_by_id``) and ``query.merge`` (the fold, one ``topk_merge``
+    launch on the card), each carrying ``t``. No attribute reads the
+    device."""
     tracer = get_tracer()
     with tracer.span("query.init"):
         state = _init_state(queries.shape[0], cfg, queries.device, valid)
-        thresh2 = _thresholds(cfg, queries.device)
+        thresh2 = _thresholds(cfg)
     for t in range(len(cfg.radii)):
         with tracer.span("query.sync", t=t):
             done = bool(state[2].all())  # one host sync per radius: early exit
         if done:
             break
         with tracer.span("query.probe", t=t):
-            cid, cd2, st = _probe_radius_fused(
+            cid, cd2, blocks_read, count = _probe_radius_fused(
                 ix, queries, qnorm2, cnt_all[t], head_all[t], qfp_all[t], cfg, ~state[2])
         with tracer.span("query.merge", t=t):
-            state = _update_state(state, cid, cd2, st, t, thresh2[t], cfg)
+            state = _update_state(state, cid, cd2, cnt_all[t], blocks_read, count, t,
+                                  thresh2[t])
     return state
 
 

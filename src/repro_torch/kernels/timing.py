@@ -23,8 +23,11 @@ Shapes, those of the SIFT1M configuration in ``chip_smoke.py``:
 radii 1..64) at Q = 256 and 2; ``probe_append`` at radius 0 (Q = 256,
 L = 32, two chain steps of 99 objects, S = 64) over synthetic block rows,
 19,158,070 of 104 lanes; ``l2_distance_by_id`` over the buffer it fills,
-ids into 10^6 rows of D = 128; dense ``l2_distance`` at the exact scan's
-block, 256 x 16,384. A case whose wrapper the checkout lacks is skipped.
+ids into 10^6 rows of D = 128; ``topk_merge`` folding that buffer and its
+distances into a batch's state (k = 10; no row gets within radius 0's
+threshold, so every call merges every row, as the first radius does);
+dense ``l2_distance`` at the exact scan's block, 256 x 16,384. A case
+whose wrapper the checkout lacks is skipped.
 
 The ``stage`` case times ``core.query._probe_radius_fused``, one radius of
 the fused plan, on the same inputs in any checkout that has that function
@@ -34,7 +37,7 @@ host clock (call to ``synchronize``, no flush: the eager dispatch of its
 operations counts), and the device events one call runs, with their summed
 device time, from ``torch.profiler``. Its outputs are held to the same call
 on the CPU (the checkout's plain path) over a compact copy of the rows the
-call can read.
+call can read, output by output (a dict of outputs key by key).
 """
 from __future__ import annotations
 
@@ -171,6 +174,28 @@ def cases(torch, K, dev):
                     valid=int((buf != 2**31 - 1).sum())),
                lambda: K.l2_distance_by_id(*dargs), check_by_id)
 
+    if hasattr(K, "topk_merge"):
+        buf = K.probe_append_ref(*pargs, **pkw)[0]
+        d2 = K.l2_distance_by_id_ref(P["q"], buf, P["db"], P["db_norm2"], P["qn2"])
+        Q, k = P["Q"], 10
+        i32 = dict(dtype=torch.int32, device=dev)
+        state = (torch.full((Q, k), 2**31 - 1, **i32),
+                 torch.full((Q, k), float("inf"), device=dev),
+                 torch.zeros(Q, dtype=torch.bool, device=dev),
+                 *(torch.zeros(Q, **i32) for _ in range(4)), torch.zeros(0, **i32))
+        counts = P["cnt"].clamp(max=64).sum(1, dtype=torch.int32)
+        margs = (buf, d2, P["cnt"], counts, counts)
+        mkw = dict(t=0, thresh2=4.0)    # (c R_0)^2 at c = 2: no row is within it
+
+        def check_merge():
+            want = K.topk_merge_ref(state, *margs, **mkw)
+            got = K.topk_merge(tuple(x.clone() for x in state), *margs, **mkw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), "states differ"
+            assert not bool(got[2].any()), "a row got done: the timed calls would skip it"
+            return 0.0
+        yield ("topk_merge", ("topk_merge",), dict(Q=Q, k=k, sbuf=64, L=P["L"]),
+               lambda: K.topk_merge(state, *margs, **mkw), check_merge)
+
     q, xs = randn(256, D), randn(16384, D)
 
     def check_dense():
@@ -208,14 +233,20 @@ def stage_case(torch, P, pshape):
                                        db_norm2=P["db_norm2"].cpu())
         want = tq._probe_radius_fused(ix_cpu, P["q"].cpu(), P["qn2"].cpu(), P["cnt"].cpu(),
                                       head, P["qfp"].cpu(), cfg, P["active"].cpu())
-        got = [x.cpu() if torch.is_tensor(x) else {k: v.cpu() for k, v in x.items()}
-               for x in call()]
-        assert torch.equal(got[0], want[0]), "candidate buffers differ"
-        assert got[2].keys() == want[2].keys()
-        assert all(torch.equal(got[2][k], want[2][k]) for k in want[2]), "stats differ"
-        assert torch.equal(torch.isinf(got[1]), torch.isinf(want[1]))
-        assert torch.allclose(got[1], want[1], rtol=TOL, atol=TOL)
-        return float((got[1] - want[1]).abs().nan_to_num(posinf=0.0).max())
+        got = call()
+        assert len(got) == len(want), "outputs differ in number"
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i == 1:
+                continue
+            if isinstance(w, dict):
+                assert g.keys() == w.keys(), "stats differ"
+                assert all(torch.equal(g[k].cpu(), w[k]) for k in w), "stats differ"
+            else:
+                assert torch.equal(g.cpu(), w), f"output {i} differs"
+        d2, want_d2 = got[1].cpu(), want[1]
+        assert torch.equal(torch.isinf(d2), torch.isinf(want_d2))
+        assert torch.allclose(d2, want_d2, rtol=TOL, atol=TOL)
+        return float((d2 - want_d2).abs().nan_to_num(posinf=0.0).max())
     return ("stage", ("bucket_probe", "l2_distance"),
             dict(pshape, fn="core.query._probe_radius_fused", radius=0), call, check_stage)
 

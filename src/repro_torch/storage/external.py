@@ -16,10 +16,12 @@ disk, and a query batch alternates device compute with host block fetches:
      (S-cap gating per step, ``(l, slot)`` flat order). The store's logical
      ``reads`` ledger is the measured N_io that must equal the Eq. 6/7
      replay.
-  3. **Fold (device, per rung).** The rung's candidate buffer and counters
-     go up in one pinned, non-blocking copy; the ``l2_distance_by_id``
-     kernel gathers the candidates' rows by id and computes their
-     distances, and the fused plan's ``_update_state`` merges them. The fold
+  3. **Fold (device, per rung).** The rung's candidate buffer, counters and
+     bucket sizes go up in one pinned, non-blocking copy; the
+     ``l2_distance_by_id`` kernel gathers the candidates' rows by id and
+     computes their distances, and the fused plan's ``_update_state`` folds
+     them into the top-k and the counters: one ``topk_merge`` launch on the
+     card, its plain version ``topk_merge_ref`` on the CPU. The fold
      holds no host sync (no ``.item()``, ``bool()`` or ``.cpu()`` on device
      data), so its launches return at once and the host **prefetches the
      next rung's chain heads** under it — the fetch/compute overlap of
@@ -362,25 +364,22 @@ def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return pinned.to(dev, non_blocking=True)
 
 
-def _fold(ext: "ExternalIndex", queries, qnorm2, state, buf_id, nonempty,
-          blocks_read, count, cnt_t, t: int, thresh2, cfg: QueryConfig):
+def _fold(ext: "ExternalIndex", queries, qnorm2, state, buf_id, blocks_read, count,
+          cnt_t, t: int, thresh2: float):
     """Step 3 for one rung: the fused plan's distance epilogue and state
-    fold over host-fetched candidates. The candidate buffer and the three
-    per-query counters (and the probe trace, when collected) go up as one
-    [Q, sbuf + 3 (+ L)] int32 array in one copy."""
+    fold over host-fetched candidates. The candidate buffer, the two
+    per-query counters and the rung's bucket sizes go up as one
+    [Q, sbuf + 2 + L] int32 array in one copy; the distance kernel and the
+    fold (``_update_state``: the ``topk_merge`` kernel on the card, which
+    counts the non-empty buckets and writes the probe trace from the sizes;
+    ``topk_merge_ref`` on the CPU) read its column slices in place."""
     sb = buf_id.shape[1]
-    cols = [buf_id, nonempty.sum(axis=1, dtype=np.int32)[:, None],
-            blocks_read[:, None], count[:, None]]
-    if cfg.collect_probe_sizes:
-        cols.append(np.where(nonempty, cnt_t, -1))
-    up = _upload(np.concatenate(cols, axis=1).astype(np.int32, copy=False),
-                 queries.device)
+    up = _upload(np.concatenate([buf_id, blocks_read[:, None], count[:, None], cnt_t],
+                                axis=1).astype(np.int32, copy=False), queries.device)
     buf = up[:, :sb]
-    st = dict(nio_table=up[:, sb], nio_blocks=up[:, sb + 1], cands=up[:, sb + 2])
-    if cfg.collect_probe_sizes:
-        st["probe_sizes"] = up[:, sb + 3:]
     d2 = l2_distance_by_id(queries, buf, ext.db, ext.db_norm2, qnorm2)
-    return _update_state(state, buf, d2, st, t, thresh2[t], cfg)
+    return _update_state(state, buf, d2, up[:, sb + 2:], up[:, sb], up[:, sb + 1], t,
+                         thresh2)
 
 
 # --------------------------------------------------------------------------
@@ -408,7 +407,7 @@ def _walk_rung_host(store: BlockStore, cnt, head, qfp, active_q,
     oracle: a chunk is read iff the bucket still has entries at this depth
     AND the query's candidate count entering the step is below S.
     ``record(rows)``, when given, sees each step's block rows before they are
-    read (the probe trace). Returns (buf_id, count, blocks_read, nonempty)."""
+    read (the probe trace). Returns (buf_id, count, blocks_read)."""
     Q, L = cnt.shape
     BLK, S = cfg.block_objs, cfg.S
     nonempty = (cnt > 0) & active_q[:, None]
@@ -437,7 +436,7 @@ def _walk_rung_host(store: BlockStore, cnt, head, qfp, active_q,
         flat_ok[qi[:, None], cols] = ok
         buf_id, count = _append_candidates_np(buf_id, count, flat_id,
                                               flat_ok, S)
-    return buf_id, count, blocks_read, nonempty
+    return buf_id, count, blocks_read
 
 
 # --------------------------------------------------------------------------
@@ -474,7 +473,7 @@ def external_probe_stage(ext: "ExternalIndex", queries, qnorm2, cnt_np, head_np,
     r = len(cfg.radii)
     sbuf = _fused_sbuf(cfg)
     state = _init_state(Q, cfg, dev, valid)
-    thresh2 = _thresholds(cfg, dev)
+    thresh2 = _thresholds(cfg)
     done_np = state[2].cpu().numpy()
     qfp_np = np.asarray(qfp_np).astype(np.int64)
     rungs = []
@@ -488,15 +487,15 @@ def external_probe_stage(ext: "ExternalIndex", queries, qnorm2, cnt_np, head_np,
         n_prefetch = 0
         try:
             t0 = time.perf_counter()
-            buf_id, count, blocks_read, nonempty = _walk_rung_host(
+            buf_id, count, blocks_read = _walk_rung_host(
                 ext.store, cnt_np[t], head_np[t], qfp_np[t], active_q, cfg,
                 ext.blkp, sbuf,
                 record=ext.record_probe_rows if ext.collect_row_hist else None)
             t1 = time.perf_counter()
             # launch the fold (returns at once) ...
             with tracer.span("external.fold_dispatch", t=t):
-                state = _fold(ext, queries, qnorm2, state, buf_id, nonempty,
-                              blocks_read, count, cnt_np[t], t, thresh2, cfg)
+                state = _fold(ext, queries, qnorm2, state, buf_id, blocks_read, count,
+                              cnt_np[t], t, thresh2[t])
             # ... and hide the next rung's chain reads under it
             if t + 1 < r:
                 n_prefetch = _prefetch_next(ext, cnt_np[t + 1], head_np[t + 1],

@@ -23,8 +23,13 @@ The fused probe (``probe_append``) and the distance-by-id epilogue
 to those kernels here, and to the reference's whole fused probe in
 ``tests/test_torch_query.py``.
 
+The radius fold (``topk_merge``) replaces no Pallas kernel: its plain
+version is held to a brute-force numpy merge here, and the fused plans that
+fold through it to the oracle in ``tests/test_torch_query.py``.
+
 CUDA cases (marker ``cuda``): each hand-written kernel vs its plain version
-on the card, by the same rules; they skip where no card is present.
+on the card, by the same rules (the fold bit for bit); they skip where no
+card is present.
 """
 import numpy as np
 import pytest
@@ -34,7 +39,7 @@ from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_prob
                                  l2_distance, l2_distance_by_id, l2_distance_by_id_ref,
                                  l2_distance_gathered_ref, lsh_hash_all_radii,
                                  lsh_hash_all_radii_ref, lsh_hash_ref, probe_append,
-                                 probe_append_ref)
+                                 probe_append_ref, topk_merge, topk_merge_ref)
 from repro_torch.kernels.lsh_hash import ops as hash_ops
 from repro_torch.kernels.lsh_hash.ops import hash_pack, index_hash_pack, packed_width
 from repro_torch.kernels.lsh_hash.ref import floor_margin, lsh_hash_packed_ref
@@ -417,6 +422,163 @@ def test_probe_append_and_l2_distance_by_id_refuse_bad_arguments():
         l2_distance_by_id(q, cnt, db[:, :3], torch.zeros(5), torch.zeros(2))
 
 
+def _fold_inputs(Q, k, sbuf, L, *, r=4, t=1, collect=True, device="cpu"):
+    """A search state and one radius' fold inputs that hit every rule of the
+    merge: ids drawn from a range of about k + sbuf / 2, so an id is often
+    both in the running top-k and among the candidates, and often several
+    times among one radius' candidates (its L tables); distances on a grid
+    of 0.25, so ties in d2 are common (broken by id); running top-ks of 0 to
+    k entries, so rows hold fewer than k finite ones; a tenth of the
+    repeated candidates with another distance than the id's first (the
+    first occurrence wins); candidate counts from 0 to sbuf, INVALID after;
+    a quarter of the rows done and, of those, half masked (an empty top-k
+    and zero probe counts, as a ``valid=False`` row has). Row 0 (active, a
+    full buffer) always holds an id of its top-k among its candidates, a
+    repeated candidate and a tie in d2 between two ids; row 1 (active) has
+    fewer than k finite entries; rows 2 and 3, where Q > 3, are done and
+    masked. Returns (state, (cand_id, cand_d2, cnt, blocks_read, count),
+    fold kwargs)."""
+    n_ids = k + sbuf // 2 + 1
+    table = RNG.integers(1, 17, size=(Q, n_ids)).astype(np.float32) * 0.25
+    best_id = np.full((Q, k), INVALID, np.int32)
+    best_d2 = np.full((Q, k), np.inf, np.float32)
+    done = RNG.uniform(size=Q) < 0.25
+    masked = done & (RNG.uniform(size=Q) < 0.5)
+    done[:2] = masked[:2] = False
+    if Q > 3:
+        done[2:4], masked[2:4] = True, (False, True)
+    for q in range(Q):
+        nb = 0 if masked[q] or q == 1 else k if q == 0 else int(RNG.integers(0, k + 1))
+        ids = RNG.choice(n_ids, size=nb, replace=False)
+        order = np.lexsort((ids, table[q, ids]))
+        best_id[q, :nb], best_d2[q, :nb] = ids[order], table[q, ids[order]]
+    cand_id = RNG.integers(0, n_ids, size=(Q, sbuf)).astype(np.int32)
+    cand_d2 = np.take_along_axis(table, cand_id, axis=1)
+    jitter = RNG.uniform(size=(Q, sbuf)) < 0.1
+    cand_d2[jitter] = RNG.integers(1, 17, size=int(jitter.sum())) * 0.25
+    cand_id[0, :5] = best_id[0, 0], 3 % n_ids, 3 % n_ids, 4 % n_ids, 5 % n_ids
+    cand_d2[0, :5] = best_d2[0, 0], 1.0, 1.0, 0.75, 0.75
+    count = RNG.integers(0, sbuf + 1, size=Q).astype(np.int32)
+    count[0], count[1], count[masked] = sbuf, min(k - 1, sbuf), 0
+    past = np.arange(sbuf)[None, :] >= count[:, None]
+    cand_id[past], cand_d2[past] = INVALID, np.inf
+    cnt = RNG.integers(0, 3, size=(Q, L)).astype(np.int32) * RNG.integers(
+        0, 200, size=(Q, L)).astype(np.int32)
+    blocks = np.where(masked, 0, RNG.integers(0, 2 * L + 1, size=Q)).astype(np.int32)
+    i32 = np.int32
+    probe = np.full((Q, r, L), -1, i32) if collect else np.zeros((0,), i32)
+    if collect:
+        probe[:, :t] = RNG.integers(-1, 50, size=(Q, t, L))
+    state = (best_id, best_d2, done, RNG.integers(0, t + 1, size=Q).astype(i32),
+             RNG.integers(0, 9, size=Q).astype(i32), RNG.integers(0, 9, size=Q).astype(i32),
+             RNG.integers(0, 99, size=Q).astype(i32), probe)
+    return (tuple(_t(*state, device=device)),
+            tuple(_t(cand_id, cand_d2, cnt, blocks, count, device=device)),
+            dict(t=t, thresh2=float(np.float32(1.5))))
+
+
+def _fold_brute(state, cand_id, cand_d2, cnt, blocks_read, count, *, t, thresh2):
+    """The fold row by row in Python, from its definition: the k running
+    entries, then the candidates; a valid id seen before gets +inf; the k
+    least by (d2, id, position) stay; a done row keeps its top-k."""
+    (best_id, best_d2, done, radii, nio_t, nio_b, cands, probe) = (
+        x.numpy().copy() for x in state)
+    cand_id, cand_d2, cnt = cand_id.numpy(), cand_d2.numpy(), cnt.numpy()
+    k = best_id.shape[1]
+    nio_b += blocks_read.numpy()
+    cands += count.numpy()
+    for q in range(best_id.shape[0]):
+        if probe.ndim == 3:
+            probe[q, t] = np.where(cnt[q] > 0, cnt[q], -1) if not done[q] else -1
+        if done[q]:
+            continue
+        radii[q] += 1
+        nio_t[q] += int((cnt[q] > 0).sum())
+        seen, keyed = set(), []
+        for pos, (i, d) in enumerate(zip(np.concatenate([best_id[q], cand_id[q]]).tolist(),
+                                         np.concatenate([best_d2[q], cand_d2[q]]).tolist())):
+            if i != INVALID and i in seen:
+                d = np.inf
+            seen.add(i)
+            keyed.append((d, i, pos))
+        top = sorted(keyed)[:k]
+        best_id[q] = [INVALID if np.isinf(d) else i for d, i, _ in top]
+        best_d2[q] = [d for d, _, _ in top]
+        done[q] = sum(d <= thresh2 for d, _, _ in top) >= k
+    return best_id, best_d2, done, radii, nio_t, nio_b, cands, probe
+
+
+def _assert_states_equal(got, want):
+    for name, g, w in zip(("best_id", "best_d2", "done", "radii_searched", "nio_table",
+                           "nio_blocks", "cands_checked", "probe_sizes"), got, want):
+        g = g.cpu().numpy() if torch.is_tensor(g) else g
+        w = w.cpu().numpy() if torch.is_tensor(w) else w
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g.view(np.int32) if g.dtype == np.float32 else g,
+                                      w.view(np.int32) if w.dtype == np.float32 else w,
+                                      err_msg=f"state field {name} differs")
+
+
+def _packed(cands):
+    """The fold inputs as column slices of one [Q, sbuf + 2 + L] int32 array
+    (the external plan's upload): strided rows and elements."""
+    cand_id, cand_d2, cnt, blocks, count = cands
+    sb = cand_id.shape[1]
+    up = torch.cat([cand_id, blocks[:, None], count[:, None], cnt], dim=1)
+    return up[:, :sb], cand_d2, up[:, sb + 2:], up[:, sb], up[:, sb + 1]
+
+
+@pytest.mark.parametrize("Q,k,sbuf,L,collect", [(7, 1, 8, 4, False), (9, 3, 16, 5, True),
+                                                (12, 10, 64, 32, True),
+                                                (6, 64, 40, 3, False)])
+def test_topk_merge_ref_matches_a_brute_force_merge(Q, k, sbuf, L, collect):
+    """The plain fold == the fold written out row by row, on every state
+    field: ids in both the top-k and the candidates, repeated candidates,
+    ties in d2 broken by id, INVALID padding, rows with fewer than k finite
+    entries, done rows left as they were, masked rows inert, every counter
+    and the probe trace. The wrapper runs it for CPU tensors, strided inputs
+    too, and the state given is not changed."""
+    state, cands, kw = _fold_inputs(Q, k, sbuf, L, collect=collect)
+    before = [x.clone() for x in state]
+    want = _fold_brute(state, *cands, **kw)
+    got = topk_merge(state, *cands, **kw)
+    _assert_states_equal(got, want)
+    _assert_states_equal(state, before)
+    _assert_states_equal(topk_merge_ref(state, *cands, **kw), want)
+    _assert_states_equal(topk_merge(state, *_packed(cands), **kw), want)
+    assert (want[0][1] == INVALID).any()    # fewer than k finite entries
+    assert state[2].numpy()[2:4].all() and (state[0].numpy()[3] == INVALID).all()
+
+
+def test_topk_merge_done_test_counts_the_kth_distance():
+    """A row is done when its k-th merged distance lies within thresh2 (c
+    R_t)^2 (equal counts), one ulp above it is not."""
+    k, thresh2 = 3, float(np.float32(2.25))
+    i32 = dict(dtype=torch.int32)
+    state = (torch.full((2, k), INVALID, **i32), torch.full((2, k), torch.inf),
+             torch.zeros(2, dtype=torch.bool), *(torch.zeros(2, **i32) for _ in range(4)),
+             torch.zeros(0, **i32))
+    cand_id = torch.tensor([[4, 5, 6, INVALID], [4, 5, 6, INVALID]], **i32)
+    above = float(np.nextafter(np.float32(thresh2), np.float32(np.inf)))
+    cand_d2 = torch.tensor([[0.5, 1.0, thresh2, np.inf], [0.5, 1.0, above, np.inf]])
+    zeros = torch.zeros(2, **i32)
+    got = topk_merge(state, cand_id, cand_d2, torch.zeros((2, 1), **i32), zeros, zeros,
+                     t=0, thresh2=thresh2)
+    assert got[2].tolist() == [True, False]
+    assert got[3].tolist() == [1, 1]
+
+
+def test_topk_merge_refuses_bad_arguments():
+    state, cands, kw = _fold_inputs(3, 2, 8, 4)
+    cand_id, cand_d2, cnt, blocks, count = cands
+    with pytest.raises(ValueError, match="shapes disagree"):
+        topk_merge(state, cand_id[:, :5], cand_d2, cnt, blocks, count, **kw)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        topk_merge(state, cand_id, cand_d2, cnt, blocks[:2], count, **kw)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        topk_merge(state, cand_id, cand_d2, cnt, blocks, count, **dict(kw, t=4))
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     """On the CPU every wrapper runs its plain version: no launch counted."""
     before = [k.launches for k in KERNELS]
@@ -428,6 +590,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                              max_chain=2, S=8, sbuf=8)
     l2_distance_by_id(x, buf, torch.zeros((5000, 8)), torch.zeros(5000), torch.zeros(3))
     l2_distance(x, x)
+    state, cands, kw = _fold_inputs(3, 2, 8, 4)
+    topk_merge(state, *cands, **kw)
+    assert len(KERNELS) == 5
     assert [k.launches for k in KERNELS] == before
 
 
@@ -530,3 +695,46 @@ def test_cuda_l2_distance_by_id_kernel_matches_plain(cuda, q, s, d):
     lone = l2_distance_by_id(qs[-1:].contiguous(), buf[-1:, : s // 2 + 1].contiguous(),
                              db, xn2, qn2[-1:].contiguous())
     assert torch.equal(lone, got[-1:, : s // 2 + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sbuf", [64, 512])
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("Q", [2, 256])
+def test_cuda_topk_merge_kernel_matches_plain(cuda, Q, k, sbuf):
+    """The fold kernel == its plain version on the card, bit for bit on every
+    state field, in one launch: the cases of the CPU test at the main path's
+    k and buffer (10, 64), k = 1 and 64, a buffer of 512 (the widest
+    ``s_cap`` the plans are run at), a lone pair of rows and a batch; with
+    the probe trace on and off, and with the external plan's strided
+    inputs. The kernel updates the state it is given in place."""
+    for collect in (True, False):
+        state, cands, kw = _fold_inputs(Q, k, sbuf, 32, collect=collect, device=cuda)
+        want = topk_merge_ref(state, *cands, **kw)
+        mine = tuple(x.clone() for x in state)
+        launches = KERNELS[4].launches
+        got = topk_merge(mine, *cands, **kw)
+        torch.cuda.synchronize()
+        assert KERNELS[4].launches == launches + 1
+        assert all(g is m for g, m in zip(got, mine))
+        _assert_states_equal(got, want)
+        strided = topk_merge(tuple(x.clone() for x in state), *_packed(cands), **kw)
+        _assert_states_equal(strided, want)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_merge_refuses_what_the_kernel_cannot_take(cuda):
+    """k + sbuf past the 4,096 entries a block stages, a strided state and
+    a candidate buffer with strided columns raise before a launch."""
+    state, cands, kw = _fold_inputs(2, 10, 4087, 4, device=cuda)
+    launches = KERNELS[4].launches
+    with pytest.raises(ValueError, match="k \\+ sbuf <= 4096"):
+        topk_merge(state, *cands, **kw)
+    state, cands, kw = _fold_inputs(2, 10, 64, 4, device=cuda)
+    strided = (state[0].t().contiguous().t(),) + state[1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_merge(strided, *cands, **kw)
+    wide = torch.cat([cands[0], cands[0]], dim=1)[:, ::2]
+    with pytest.raises(ValueError, match="unit column stride"):
+        topk_merge(state, wide, *cands[1:], **kw)
+    assert KERNELS[4].launches == launches

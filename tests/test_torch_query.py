@@ -9,7 +9,10 @@ reference on an index carried across by ``IndexArrays.from_numpy``.
   one radius of it, the plain fused probe and distance epilogue, == the
   reference's ``_probe_radius_fused`` under several chain depths and
   budgets, with inactive queries;
-* the io_count replay of the port's probe trace == its I/O counters.
+* the io_count replay of the port's probe trace == its I/O counters;
+* the fused and external plans fold each radius through ``_update_state``:
+  on the card one ``topk_merge`` launch a ``query.merge`` span (a rung),
+  and no CUDA tensor reaches the plain fold; on the CPU no launch.
 """
 import dataclasses
 
@@ -326,6 +329,86 @@ def test_fused_plan_spans_split_the_radius_loop(engine, clustered_data, k, s_cap
             assert root.ts_ns <= sp.ts_ns and sp.ts_ns + sp.dur_ns <= root.ts_ns + root.dur_ns
     _assert_identical(res, engine.query(q, **kw))
     assert len(tel.get_tracer()) == 0
+
+
+def _merge_kernel():
+    (kern,) = [k for k in KERNELS if k.name == "topk_merge"]
+    return kern
+
+
+def test_cpu_folds_launch_no_merge_kernel(engine, built_index, clustered_data, tmp_path):
+    """On the CPU the fused and external plans fold every radius through the
+    plain version: merge spans are recorded, no kernel launch is counted."""
+    from repro_torch.storage import load_external
+
+    q = clustered_data["queries"][:16]
+    path = tmp_path / "ix.e2l"
+    built_index.index.spill(path)
+    before = _merge_kernel().launches
+    _, spans = _traced(lambda: engine.query(q, plan="fused", k=3))
+    with load_external(path, backend="mem", device="cpu") as ext:
+        _, ext_spans = _traced(lambda: SearchEngine(ext).query(q, k=3))
+    assert sum(sp.name == "query.merge" for sp in spans) > 0
+    assert sum(sp.name == "external.fold_dispatch" for sp in ext_spans) > 0
+    assert _merge_kernel().launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_fused_and_external_fold_by_one_merge_launch_a_radius(tmp_path, monkeypatch):
+    """On the card the fused plan launches ``topk_merge`` once a
+    ``query.merge`` span (a radius folded) and the external plan once a rung,
+    no CUDA tensor reaches the plain fold on either, and the oracle plan
+    launches none; the fused result still matches the oracle's on every row
+    whose kernel hashes equal the plain ones, and the external plan equals
+    the fused one bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++")
+    from repro_torch.core import E2LSHoS
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import lsh_hash_all_radii, lsh_hash_all_radii_ref
+    from repro_torch.kernels.topk_merge import ops as merge_ops
+    from repro_torch.storage import load_external
+
+    plain = merge_ops.topk_merge_ref
+    reached = []
+
+    def watched(state, *args, **kw):
+        reached.append(state[0].device.type)
+        return plain(state, *args, **kw)
+    monkeypatch.setattr(merge_ops, "topk_merge_ref", watched)
+    ds = make_dataset("sift", n=20_000, n_queries=64, seed=1)
+    idx = E2LSHoS.build(ds.db, gamma=0.8, max_L=32, device="cuda")
+    engine = SearchEngine(idx)
+    q = ds.queries
+    kern = _merge_kernel()
+    before = kern.launches
+    fus, spans = _traced(lambda: engine.query(q, plan="fused", k=3))
+    torch.cuda.synchronize()
+    merges = sum(sp.name == "query.merge" for sp in spans)
+    assert merges == int(fus.radii_searched.max()) > 0
+    assert kern.launches - before == merges
+    before = kern.launches
+    ref = engine.query(q, plan="oracle", k=3)
+    torch.cuda.synchronize()
+    assert kern.launches == before
+    cfg, ix = engine.config(k=3), engine.arrays()
+    qt = torch.from_numpy(np.array(q)).cuda()
+    kw = dict(w=cfg.w, radii=cfg.radii, u=cfg.u, fp_bits=cfg.fp_bits)
+    bk, fp = lsh_hash_all_radii(qt, ix.a, ix.b, ix.rm, **kw)
+    bk_p, fp_p = lsh_hash_all_radii_ref(qt, ix.a, ix.b, ix.rm, **kw)
+    agree = _np(((bk == bk_p) & (fp == fp_p)).all(dim=2).all(dim=0))
+    assert agree.mean() > 0.9
+    differ = agree & ~fus.rows_agree(ref, tol=2e-4)
+    assert not differ.any(), f"rows {np.flatnonzero(differ)} differ from the oracle"
+    path = tmp_path / "ix.e2l"
+    idx.index.spill(path)
+    with load_external(path, backend="mem", device="cuda") as ext:
+        before = kern.launches
+        got = SearchEngine(ext).query(q, k=3)
+        torch.cuda.synchronize()
+        assert kern.launches - before == len(ext.last_plan_stats.rungs) > 0
+    _assert_identical(got, fus)
+    assert reached == []
 
 
 def test_spans_open_profiler_ranges_with_record_function(engine, clustered_data):
