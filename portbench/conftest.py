@@ -67,7 +67,7 @@ def make_bench_root(tmp_path: pathlib.Path) -> pathlib.Path:
     root = tmp_path / "root"
     (root / "portbench").mkdir(parents=True)
     shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "tiers"):
         shutil.copytree(BENCH / sub, root / "portbench" / sub)
     shutil.copy(BENCH / "limits.json", root / "portbench" / "limits.json")
     add_config(root, TINY)

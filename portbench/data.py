@@ -20,7 +20,9 @@ import dataclasses
 
 import torch
 
-__all__ = ["DataSpec", "Dataset", "make_dataset", "held_out_mask"]
+__all__ = ["DataSpec", "Dataset", "make_dataset", "held_out_mask", "GENERATORS"]
+
+GENERATORS = ("sift",)       # the names a configuration's ``data.generator`` may give
 
 _QUANTILE_SAMPLE = 1 << 22   # coordinates the byte range is read from
 _SCALE_QUERIES = 1024        # queries whose 1-NN distances set the scale
@@ -41,7 +43,12 @@ class DataSpec:
 
     @staticmethod
     def from_config(cfg: dict) -> "DataSpec":
+        """The configuration's ``data``; its ``generator`` must be one this
+        module makes."""
         data = cfg["data"]
+        if data.get("generator") not in GENERATORS:
+            raise ValueError(f"unknown data generator {data.get('generator')!r}; "
+                             f"portbench/data.py makes {list(GENERATORS)}")
         return DataSpec(n=int(cfg["n"]), d=int(cfg["d"]),
                         clusters=int(data["clusters"]), spread=float(data["spread"]),
                         easy_share=float(data["easy_share"]),

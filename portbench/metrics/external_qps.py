@@ -4,4 +4,6 @@ comes from the host and the file system."""
 
 
 def read(ctx):
+    if not ctx["window_s"]:
+        return None
     return ctx["rows"] / ctx["window_s"]

@@ -11,7 +11,9 @@ reference, beside its limit. The same numbers close standard error.
 It needs as many CUDA devices as the cell asks for, and the program beside
 it (``src/repro_torch``); without either it exits with code 2 and prints
 no result. It exits with code 3, and prints no result, if JAX or the JAX
-package was loaded by the time the window closed.
+package was loaded by the time the window closed. A cell of more than one
+chip runs one process a card (``portbench/ranks.py``); if a rank fails, the
+command exits with its code and prints no result.
 """
 from __future__ import annotations
 
@@ -76,8 +78,16 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA device(s); {have} available",
               file=sys.stderr)
         return 2
-    out = run_cell(ROOT, args.workload, seed=args.seed, seconds=args.seconds,
-                   trace=bool(args.trace), device="cuda", t_start=T_START)
+    if cell.chips > 1:
+        from portbench.ranks import launch
+        rc, out = launch(ROOT, args.workload, seed=args.seed, seconds=args.seconds,
+                         trace=bool(args.trace), chips=cell.chips, device="cuda",
+                         t_start=T_START)
+        if rc:
+            return rc
+    else:
+        out = run_cell(ROOT, args.workload, seed=args.seed, seconds=args.seconds,
+                       trace=bool(args.trace), device="cuda", t_start=T_START)
     bad = forbidden_modules()
     if bad:
         print(f"loaded by the time the window closed: {bad}", file=sys.stderr)

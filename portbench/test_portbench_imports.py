@@ -15,10 +15,13 @@ import sys
 sys.path[:0] = [{src!r}, {root!r}]
 import portbench.run, portbench.harness, portbench.control, portbench.trace
 import portbench.reference, portbench.compare, portbench.data, portbench.roofline
+import portbench.ranks, portbench.spans, portbench.program
 import repro_torch.core, repro_torch.storage, repro_torch.serving, repro_torch.telemetry
-from portbench.harness import load_cell, load_reader
+import repro_torch.core.distributed
+from portbench.harness import load_cell, load_reader, load_tier
 for cell in {cells!r}:
     c = load_cell({root!r}, cell)
+    load_tier(c.bench_dir, c.config["tier"])
     for name in c.end_to_end + c.per_layer:
         load_reader(c.bench_dir, name)
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
