@@ -54,11 +54,16 @@ from .probabilities import LSHParams, solve_params
 from .query import QueryConfig, QueryResult, fused_plan_body, oracle_plan_body
 from ..kernels.bucket_probe.ops import INVALID
 from ..kernels.dispatch import resolve_device
+from ..telemetry import get_registry, get_tracer
 
 __all__ = ["ShardedIndexArrays", "build_sharded_index", "sharded_query_result",
            "make_sharded_query_fn", "RankLayout", "LocalShard", "build_local_shard"]
 
 _FAMILY = ("a", "b", "rm")
+
+_GATHER_BYTES = get_registry().counter(
+    "e2lsh_sharded_gather_bytes_total",
+    "bytes the rank-parallel sharded plan's all-gathers bring to this rank")
 
 
 @dataclasses.dataclass
@@ -417,10 +422,22 @@ def _all_gather(packed: torch.Tensor, group, size: int) -> list:
     return parts
 
 
+def _gathered(part: QueryResult, group, size: int) -> list:
+    """Every rank's ``part`` in ``group`` (rank order): packed into one int32
+    tensor, all-gathered, unpacked. With tracing on, the ``query.gather``
+    span; the bytes gathered count in ``e2lsh_sharded_gather_bytes_total``."""
+    with get_tracer().span("query.gather"):
+        packed = part._packed()
+        _GATHER_BYTES.inc(size * packed.numel() * packed.element_size())
+        return [part._unpacked(p) for p in _all_gather(packed, group, size)]
+
+
 def _rank_query(local: LocalShard, queries, cfg, valid, layout: RankLayout, body,
                 k: int) -> QueryResult:
     """The rank-parallel body: this rank's rows of the batch on its shard,
-    the merge over the shard group, the rows over the query group."""
+    the merge over the shard group, the rows over the query group. With
+    tracing on, each all-gather is a ``query.gather`` span and the merge the
+    ``query.shard_merge`` span."""
     if local.shard != layout.shard or local.num_shards != layout.shards:
         raise ValueError(f"shard {local.shard} of {local.num_shards} on the rank at "
                          f"shard {layout.shard} of {layout.shards}")
@@ -435,14 +452,12 @@ def _rank_query(local: LocalShard, queries, cfg, valid, layout: RankLayout, body
     lo = layout.query * rows
     part = _shard_part(body, local.arrays, local.shard_offset, queries[lo:lo + rows], cfg,
                        valid[lo:lo + rows])
-    if layout.shards > 1:
-        part = _merge([part._unpacked(p) for p in
-                       _all_gather(part._packed(), layout.shard_group, layout.shards)], k)
-    else:
-        part = _merge([part], k)
+    parts = ([part] if layout.shards == 1
+             else _gathered(part, layout.shard_group, layout.shards))
+    with get_tracer().span("query.shard_merge"):
+        part = _merge(parts, k)
     if qg > 1:
-        groups = [part._unpacked(p)
-                  for p in _all_gather(part._packed(), layout.query_group, qg)]
+        groups = _gathered(part, layout.query_group, qg)
         part = QueryResult(**{f.name: None if getattr(part, f.name) is None
                               else torch.cat([getattr(g, f.name) for g in groups])
                               for f in dataclasses.fields(QueryResult)})
