@@ -1289,10 +1289,13 @@ def serve_cli_phase():
 
 
 def hash_bound_ms(n, d, r, L, m):
-    """lsh_hash's least time: x, a, b, wR, rm read once, bucket and fp
-    written once; 2*n*d*r*L*m flops (the algorithm's columns, not padded)."""
-    rlm = r * L * m
-    return bound_ms(n * d * 4 + rlm * d * 4 + 3 * rlm * 4 + 2 * n * r * L * 4, 2 * n * d * rlm)
+    """lsh_hash's least time on the plans' route (``lsh_hash_lookup``): x, a,
+    b, wR, rm read once; each hash's two table entries read as a 32-byte
+    sector each (the buckets fall at random); cnt, head and fp written once.
+    2*n*d*r*L*m flops (the algorithm's columns, not padded)."""
+    rlm, nh = r * L * m, n * r * L
+    return bound_ms(n * d * 4 + rlm * d * 4 + 3 * rlm * 4 + 2 * nh * 32 + 3 * nh * 4,
+                    2 * n * d * rlm)
 
 
 def probe_bound_ms(rows_read, Q, L, BLKp, sbuf):
@@ -1310,15 +1313,27 @@ def by_id_bound_ms(n_valid, Q, D, sbuf):
                     n_valid * (2 * D + 3))
 
 
-def hash_kernel_phase(torch, dev, ix, queries, hkw):
-    """The hash kernel against its plain version: the index's family at
-    N = 256, 2, 1 (the batch, a lone query as the plans pad it, a bare
-    row), 33 and 300 (database rows), and a ragged family (m = 13, D = 100).
-    Every hash clear of a floor() boundary by MARGIN must agree. Returns the
-    largest bucket difference among those (0 when all agree)."""
-    from repro_torch.kernels import lsh_hash_all_radii, lsh_hash_all_radii_ref
+def hash_kernel_phase(torch, dev, ix, queries, hkw, launches, flush):
+    """The hash kernel against its plain version, then its times, on the
+    route the plans run: ``lsh_hash_lookup`` (the hashes of the schedule and
+    the index's own table entries in one launch) on the index's family at
+    N = 256, 2, 1 (the batch, a lone query as the plans pad it, a bare row),
+    33 and 300 (database rows), cnt, head and fp against
+    ``lsh_hash_lookup_ref``; and the bucket route (``lsh_hash_all_radii``,
+    bucket and fp against ``lsh_hash_all_radii_ref``) on a ragged family
+    (m = 13, D = 100), which has no tables. Every hash clear of a floor()
+    boundary by MARGIN must agree. Returns the kernel's record: the lookup
+    timed at N = 256 (and 2), its largest difference among those hashes
+    (0 when all agree)."""
+    from repro_torch.kernels import (lsh_hash_all_radii, lsh_hash_all_radii_ref,
+                                     lsh_hash_lookup, lsh_hash_lookup_ref)
+    from repro_torch.kernels.lsh_hash.ops import index_hash_pack
     from repro_torch.kernels.lsh_hash.ref import floor_margin
 
+    # the index's pack and tables, as the plans pass them
+    pack = index_hash_pack(ix, w=hkw["w"], radii=hkw["radii"])
+    lkw = dict(u=hkw["u"], fp_bits=hkw["fp_bits"])
+    tables = (ix.table_cnt, ix.blocks_head)
     gen = torch.Generator(device=dev).manual_seed(2)
     r13, L13, m13, d13 = 3, 8, 13, 100
     fam13 = (torch.randn((r13, L13, m13, d13), generator=gen, device=dev),
@@ -1332,18 +1347,44 @@ def hash_kernel_phase(torch, dev, ix, queries, hkw):
               for n in (1, 2, 33, 300)]
     worst = 0
     for x, (a, b, rm), kw in cases:
-        bk, fp = lsh_hash_all_radii(x, a, b, rm, **kw)
-        bk_p, fp_p = lsh_hash_all_radii_ref(x, a, b, rm, **kw)
+        if a is ix.a:
+            route = "lookup"
+            got = lsh_hash_lookup(x, pack, *tables, **lkw)
+            want = lsh_hash_lookup_ref(x, pack, *tables, **lkw)
+        else:
+            route = "bucket"
+            got = lsh_hash_all_radii(x, a, b, rm, **kw)
+            want = lsh_hash_all_radii_ref(x, a, b, rm, **kw)
         safe = floor_margin(x, a, b, w=kw["w"], radii=kw["radii"]) > MARGIN
-        same = (bk == bk_p) & (fp == fp_p)
+        same = torch.stack([g == w for g, w in zip(got, want)]).all(dim=0)
         bad = int((safe & ~same).sum())
-        worst = max(worst, int(((bk - bk_p).abs() * safe).max()))
-        say("lsh_hash", rows=x.shape[0], m=a.shape[2], D=a.shape[3], hashes=same.numel(),
-            clear_of_boundary=int(safe.sum()), disagree_clear=bad,
+        worst = max(worst, max(int(((g - w).abs() * safe).max()) for g, w in zip(got, want)))
+        say("lsh_hash", route=route, rows=x.shape[0], m=a.shape[2], D=a.shape[3],
+            hashes=same.numel(), clear_of_boundary=int(safe.sum()), disagree_clear=bad,
             flips_near_boundary=int((~safe & ~same).sum()))
-        check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree "
+        check(bad == 0, f"lsh_hash ({route}): {bad} hashes clear of a boundary disagree "
                         f"(N={x.shape[0]}, m={a.shape[2]}, D={a.shape[3]})")
-    return worst
+
+    r, L, m, D = ix.a.shape
+    Q = queries.shape[0]
+    t_k = median_ms(torch, lambda: lsh_hash_lookup(queries, pack, *tables, **lkw), flush=flush)
+    t_p = median_ms(torch, lambda: lsh_hash_lookup_ref(queries, pack, *tables, **lkw),
+                    flush=flush)
+    a2 = ix.a.reshape(r * L * m, D)
+    t_y = median_ms(torch, lambda: queries @ a2.T, flush=flush)
+    b_ms, b_by = hash_bound_ms(Q, D, r, L, m)
+    say("lsh_hash", route="lookup", rows=Q, ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+        yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        bound_share=f"{b_ms / t_k:.3f}", tflops=f"{2 * Q * D * r * L * m / t_k / 1e9:.2f}")
+    q2 = queries[:2]
+    t_k2 = median_ms(torch, lambda: lsh_hash_lookup(q2, pack, *tables, **lkw), flush=flush)
+    b2_ms, b2_by = hash_bound_ms(2, D, r, L, m)
+    say("lsh_hash", route="lookup", rows=2, ms=f"{t_k2:.4f}", bound_ms=f"{b2_ms:.4f}",
+        bound_by=b2_by, bound_share=f"{b2_ms / t_k2:.3f}")
+    return dict(name="lsh_hash", route="cuda", source="src/repro_torch/csrc/lsh_hash.cu",
+                replaces="src/repro/kernels/lsh_hash/kernel.py:76",
+                launches=launches["lsh_hash"], max_abs_err=float(worst), ms=t_k,
+                plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def dense_kernel_phase(torch, dev, flush):
@@ -1577,8 +1618,8 @@ def lm_kernel_checks(torch, dev, idx, hn, flush):
     from repro_torch.core import SearchEngine
     from repro_torch.core import query as tq
     from repro_torch.kernels import (INVALID, l2_distance_by_id, l2_distance_by_id_ref,
-                                     lsh_hash_all_radii, lsh_hash_all_radii_ref,
-                                     probe_append, probe_append_ref)
+                                     lsh_hash_lookup, lsh_hash_lookup_ref, probe_append,
+                                     probe_append_ref)
     from repro_torch.kernels.lsh_hash.ops import index_hash_pack
     from repro_torch.kernels.lsh_hash.ref import floor_margin
 
@@ -1586,21 +1627,22 @@ def lm_kernel_checks(torch, dev, idx, hn, flush):
     cfg = engine.config(k=LM_K)
     ix = engine.arrays(cfg.block_objs)
     Q, D = hn.shape
-    hkw = dict(w=cfg.w, radii=cfg.radii, u=cfg.u, fp_bits=cfg.fp_bits)
+    # Step 1 as the plans run it: the hashes and the index's table entries
     pack = index_hash_pack(ix, w=cfg.w, radii=cfg.radii)
-    bk, fp = lsh_hash_all_radii(hn, ix.a, ix.b, ix.rm, **hkw, pack=pack)
-    bk_p, fp_p = lsh_hash_all_radii_ref(hn, ix.a, ix.b, ix.rm, **hkw)
+    lkw = dict(u=cfg.u, fp_bits=cfg.fp_bits)
+    tables = (ix.table_cnt, ix.blocks_head)
+    h_got = lsh_hash_lookup(hn, pack, *tables, **lkw)
+    h_want = lsh_hash_lookup_ref(hn, pack, *tables, **lkw)
     safe = floor_margin(hn, ix.a, ix.b, w=cfg.w, radii=cfg.radii) > MARGIN
-    same = (bk == bk_p) & (fp == fp_p)
+    same = torch.stack([g == w for g, w in zip(h_got, h_want)]).all(dim=0)
     bad = int((safe & ~same).sum())
     r, L, m, _ = ix.a.shape
-    t_h = median_ms(torch, lambda: lsh_hash_all_radii(hn, ix.a, ix.b, ix.rm, **hkw, pack=pack),
-                    flush=flush)
+    t_h = median_ms(torch, lambda: lsh_hash_lookup(hn, pack, *tables, **lkw), flush=flush)
     a2 = ix.a.reshape(r * L * m, D)
     t_y = median_ms(torch, lambda: hn @ a2.T, flush=flush)
     b_h, by_h = hash_bound_ms(Q, D, r, L, m)
-    say("lm", kernel="lsh_hash", Q=Q, D=D, r=r, L=L, m=m, hashes=same.numel(),
-        clear_of_boundary=int(safe.sum()), disagree_clear=bad,
+    say("lm", kernel="lsh_hash", route="lookup", Q=Q, D=D, r=r, L=L, m=m,
+        hashes=same.numel(), clear_of_boundary=int(safe.sum()), disagree_clear=bad,
         flips_near_boundary=int((~safe & ~same).sum()), ms=f"{t_h:.4f}",
         yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_h:.4f}", bound_by=by_h)
     check(bad == 0, f"lsh_hash: {bad} hashes clear of a boundary disagree at D={D}")
@@ -1609,7 +1651,8 @@ def lm_kernel_checks(torch, dev, idx, hn, flush):
     active = torch.ones(Q, dtype=torch.bool, device=dev)
     pkw = dict(block_objs=cfg.block_objs, max_chain=cfg.max_chain, S=cfg.S,
                sbuf=tq._fused_sbuf(cfg))
-    worst = dict(lsh_hash=int(((bk - bk_p).abs() * safe).max()), bucket_probe=0.0,
+    worst = dict(lsh_hash=max(int(((g - w).abs() * safe).max()) for g, w in zip(h_got, h_want)),
+                 bucket_probe=0.0,
                  l2_distance_gathered=0.0)
     for t in (0, cnt_all.shape[0] - 1):
         pargs = (cnt_all[t], head_all[t], qfp_all[t], active, ix.ids_blocks, ix.fps_blocks)
@@ -2921,7 +2964,6 @@ def main(argv=None) -> int:
     from repro_torch.data import make_dataset
     from repro_torch.kernels import KERNELS, lsh_hash_all_radii, lsh_hash_all_radii_ref
     from repro_torch.kernels.build import build_all, kernel_names, library_path
-    from repro_torch.kernels.lsh_hash.ops import index_hash_pack
 
     # ---- the card and the build ----------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3063,32 +3105,8 @@ def main(argv=None) -> int:
     say("timing", method="median of 30, CUDA events, L2 flushed before each call",
         floor_one_element_add_ms=f"{median_ms(torch, lambda: one.add_(1), flush=flush):.4f}")
 
-    # lsh_hash: the batch's all-radius hash
-    r, L, m, D = ix.a.shape
-    RLM = r * L * m
-    worst = hash_kernel_phase(torch, dev, ix, queries, hkw)
-    # the index's pack, as the plans pass it (built at its first batch)
-    pack = index_hash_pack(ix, w=hkw["w"], radii=hkw["radii"])
-    t_k = median_ms(torch, lambda: lsh_hash_all_radii(queries, ix.a, ix.b, ix.rm, **hkw,
-                                                      pack=pack), flush=flush)
-    t_p = median_ms(torch, lambda: lsh_hash_all_radii_ref(queries, ix.a, ix.b, ix.rm, **hkw),
-                    flush=flush)
-    a2 = ix.a.reshape(RLM, D)
-    t_y = median_ms(torch, lambda: queries @ a2.T, flush=flush)
-    b_ms, b_by = hash_bound_ms(Q, D, r, L, m)
-    say("lsh_hash", rows=Q, ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-        yardstick_projection_matmul_ms=f"{t_y:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-        bound_share=f"{b_ms / t_k:.3f}", tflops=f"{2 * Q * D * RLM / t_k / 1e9:.2f}")
-    q2 = queries[:2]
-    t_k2 = median_ms(torch, lambda: lsh_hash_all_radii(q2, ix.a, ix.b, ix.rm, **hkw,
-                                                       pack=pack), flush=flush)
-    b2_ms, b2_by = hash_bound_ms(2, D, r, L, m)
-    say("lsh_hash", rows=2, ms=f"{t_k2:.4f}", bound_ms=f"{b2_ms:.4f}", bound_by=b2_by,
-        bound_share=f"{b2_ms / t_k2:.3f}")
-    record.append(dict(name="lsh_hash", route="cuda", source="src/repro_torch/csrc/lsh_hash.cu",
-                       replaces="src/repro/kernels/lsh_hash/kernel.py:76",
-                       launches=launches["lsh_hash"], max_abs_err=float(worst), ms=t_k,
-                       plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # lsh_hash: the batch's Step 1 (hashes and table entries) as the plans run it
+    record.append(hash_kernel_phase(torch, dev, ix, queries, hkw, launches, flush))
 
     # the fused probe (bucket_probe.cu), the distance epilogue
     # (l2_distance.cu) and the fold (topk_merge.cu) at radius 0 of the batch,
@@ -3107,7 +3125,7 @@ def main(argv=None) -> int:
     # ---- the sharded plan and the small-index baselines, after the main
     # index is dropped (the sharded index holds as many bytes again)
     e2lsh_bytes = dict(device=ix.nbytes(), storage=idx.index.stats.index_storage_bytes)
-    del idx, engine, ix, pack, a2, flush, res, res1, oracle
+    del idx, engine, ix, flush, res, res1, oracle
     torch.cuda.empty_cache()
     by_path = dict(fused=launches, exact=exact_launches)
     t_phase = time.perf_counter()

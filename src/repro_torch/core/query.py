@@ -15,12 +15,12 @@ One entry point over the plans of one single-device index:
     res = engine.query(qs, plan="fused")
 
 * ``plan="fused"`` — the production plan. A hash stage hashes the batch for
-  the whole radius schedule in one ``lsh_hash`` launch and looks up every
-  bucket's size and chain head in two gathers; a probe stage then runs the
-  radius loop: per radius one ``probe_append`` launch reads the chain block
-  rows under the S budget and appends the fingerprint matches to the
-  candidate buffer, one ``l2_distance_by_id`` launch gathers the
-  candidates' rows and computes their distances, and one ``topk_merge``
+  the whole radius schedule and looks up every bucket's size and chain head
+  in one ``lsh_hash`` launch (the lookup is the kernel's epilogue); a probe
+  stage then runs the radius loop: per radius one ``probe_append`` launch
+  reads the chain block rows under the S budget and appends the fingerprint
+  matches to the candidate buffer, one ``l2_distance_by_id`` launch gathers
+  the candidates' rows and computes their distances, and one ``topk_merge``
   launch folds them into the running top-k and the counters in place
   (``_update_state``; on the CPU its plain version ``topk_merge_ref``).
   The loop leaves early when every query is done, which costs one
@@ -82,8 +82,8 @@ from ..kernels.bucket_probe.ref import append_candidates
 from ..kernels.dispatch import resolve_device
 from ..kernels.l2_distance.ops import l2_distance_by_id
 from ..kernels.l2_distance.ref import l2_distance_by_id_ref
-from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_all_radii
-from ..kernels.lsh_hash.ref import lsh_hash_ref
+from ..kernels.lsh_hash.ops import index_hash_pack, lsh_hash_lookup
+from ..kernels.lsh_hash.ref import lsh_hash_ref, table_lookup_ref
 from ..kernels.topk_merge.ops import topk_merge
 from ..kernels.topk_merge.ref import topk_merge_ref
 from ..telemetry import get_registry, get_tracer
@@ -399,29 +399,24 @@ def host_plan_body(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig,
 
 def table_lookup(ix: IndexArrays, bucket_all: torch.Tensor, cfg: QueryConfig):
     """Bucket sizes and chain-head rows for every (radius, query, table) in
-    two gathers. bucket_all [r, Q, L] -> (cnt_all, head_all) [r, Q, L]."""
-    r = len(cfg.radii)
-    dev = bucket_all.device
-    tl = (torch.arange(r, device=dev, dtype=torch.int64)[:, None, None] * cfg.L
-          + torch.arange(cfg.L, device=dev, dtype=torch.int64)[None, None, :])
-    flat = (tl << cfg.u) + bucket_all.to(torch.int64)
-    return ix.table_cnt.reshape(-1)[flat], ix.blocks_head.reshape(-1)[flat]
+    two gathers. bucket_all [r, Q, L] -> (cnt_all, head_all) [r, Q, L].
+    The plain lookup: :func:`hash_stage` does it in the hash kernel's
+    epilogue, and is held to this over the plain hashes."""
+    return table_lookup_ref(ix.table_cnt, ix.blocks_head, bucket_all, u=cfg.u)
 
 
 def hash_stage(ix: IndexArrays, queries: torch.Tensor, cfg: QueryConfig):
-    """Step 1 for the whole schedule: one lsh_hash launch hashes every radius,
-    then the table lookups; the kernel reads the index's hash pack, built at
-    its first batch. queries [Q, d] float32 -> (cnt_all, head_all, qfp_all)
-    [r, Q, L], contiguous (the probe kernel reads each radius' [Q, L] rows).
-    With tracing on, the stage is the ``query.hash`` span."""
+    """Step 1 for the whole schedule: ``lsh_hash_lookup`` hashes every radius
+    and reads each bucket's size and chain head from the index's tables, in
+    one ``lsh_hash`` launch on the card (the plain version, equal to
+    :func:`table_lookup` over the plain hashes, on the CPU); the kernel reads
+    the index's hash pack, built at its first batch. queries [Q, d] float32
+    -> (cnt_all, head_all, qfp_all) [r, Q, L] int32, contiguous (the probe
+    kernel reads each radius' [Q, L] rows). With tracing on, the stage is
+    the ``query.hash`` span."""
     with get_tracer().span("query.hash"):
-        bucket_all, qfp_all = lsh_hash_all_radii(
-            queries, ix.a, ix.b, ix.rm, w=cfg.w, radii=cfg.radii, u=cfg.u,
-            fp_bits=cfg.fp_bits, pack=index_hash_pack(ix, w=cfg.w, radii=cfg.radii))
-        # the kernel's [N, r*L] outputs come as [r, N, L] views: one copy each
-        # per batch makes every radius' [Q, L] slices contiguous
-        cnt_all, head_all = table_lookup(ix, bucket_all.contiguous(), cfg)
-        return cnt_all, head_all, qfp_all.contiguous()
+        return lsh_hash_lookup(queries, index_hash_pack(ix, w=cfg.w, radii=cfg.radii),
+                               ix.table_cnt, ix.blocks_head, u=cfg.u, fp_bits=cfg.fp_bits)
 
 
 def probe_stage(ix: IndexArrays, queries, qnorm2, cnt_all, head_all, qfp_all,

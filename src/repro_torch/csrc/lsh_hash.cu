@@ -1,4 +1,5 @@
-// Fused p-stable LSH hashing for the whole radius schedule in one launch.
+// Fused p-stable LSH hashing for the whole radius schedule in one launch,
+// with the hash-table lookup of every bucket in its epilogue.
 //
 // Replaces lsh_hash_pallas (src/repro/kernels/lsh_hash/kernel.py:76): for
 // query row n and compound hash j (j = t*L + l over every radius t),
@@ -7,30 +8,45 @@
 //   acc    = sum_i uint32(h_c) * rm[c]         wrapping uint32
 //   hv     = fmix32(acc)
 //   bucket = hv & (2^u - 1),  fp = (hv >> u) & (2^fp_bits - 1)
-// written to bucket/fp [N, n_hashes] int32. The operands are the wrapper's
-// pack (kernels/lsh_hash/ops.py), built once per index and radius schedule:
-// each hash's m columns padded to mp (a multiple of 4 that divides the block
-// width) with a = 0, bwr = 0, wr = 1, rm = 0, so a padding column adds 0.
+// and, given the index's tables cnt/head [r, L, 2^u] (the query plans' Step 1
+// read), gathers
+//   cnt[(j << u) + bucket], head[(j << u) + bucket]   (64-bit index: r*L*2^u
+//                                                      can pass 2^31)
+// and writes cnt, head and fp to [r, N, L] int32 at (t*N + n)*L + l: the
+// layout the probe stage reads a radius at a time as contiguous [N, L] rows,
+// so the bucket id never reaches device memory. Without tables (null
+// pointers) it writes bucket and fp in that layout instead. The operands are
+// the wrapper's pack (kernels/lsh_hash/ops.py), built once per index and
+// radius schedule: each hash's m columns padded to mp (a multiple of 4 that
+// divides the block width) with a = 0, bwr = 0, wr = 1, rm = 0, so a padding
+// column adds 0.
 //
 // Arithmetic contract: the projection is IEEE fp32 FMAs (no TF32, no tensor
 // cores, no cuBLAS) and the quantisation keeps the reference's op order with
 // a true division (__fadd_rn, __fdiv_rn), so a hash differs from the
 // reference's only where the two fp32 projections straddle a floor()
-// boundary.
+// boundary. The lookup reads what the hash names and changes no hash.
 //
 // What bounds it on the H100: operations. At the SIFT1M configuration
 // (N = 256, D = 128, r*L*m = 5152) it does 2*N*D*5152 = 338 MFLOP of fp32
 // FMAs against ~3.3 MB of traffic: 5.0 us at 67 TFLOP/s, 1 us at 3.35 TB/s.
+// The lookup adds 2*N*r*L random 4-byte reads (57,344 at N = 256; a 32-byte
+// sector each, 1.8 MB) and 3*N*r*L*4 bytes of writes.
 // Design: the projection is the shared register-tiled product of
 // fp32_tile.cuh (C = x . a^T, cp.async ring, register micro-tiles), and the
 // epilogue above runs on its accumulators. Wrapping uint32 addition is
 // associative, so the m products of one hash, held by several threads, are
 // summed per thread in groups of four columns and then across threads
 // through shared memory; the [N, r*L*m] projection never reaches device
-// memory, as in the TPU kernel. The epilogue's column operands (bwr, wr,
-// rm) are staged into shared memory with the first K slice. Two tiles of
-// one kernel, with the same FMA chain per output (a lone query hashes bit
-// for bit as the same row of a batch):
+// memory, as in the TPU kernel. Consecutive threads then take consecutive
+// hashes of one row: the block's BN/mp of them (4 at mp = 24, 12 at mp = 8),
+// so a run of [r, N, L] stores is BN/mp ints wide before the next row's run
+// starts L ints on; the outputs are 12*N*r*L bytes against the projection's
+// 2*N*D*r*L*m flops, too few for the stores' width to matter. The epilogue's
+// column operands (bwr, wr, rm) are staged into shared memory with the first
+// K slice. Two tiles of one kernel, with the same FMA chain per output (a
+// lone query hashes bit for bit as the same row of a batch) and the same
+// epilogue:
 //  * N > 4 (a query batch): 64 x 96 blocks of 128 threads, 4 x 12 per
 //    thread, 3 stages; 224 blocks at N = 256, two resident per SM. K = 128
 //    is only four slices deep, so the ring's fill and the IEEE divisions of
@@ -62,9 +78,12 @@ struct HashEpilogue {
   const float* bwr;   // [ncols] b * wr, packed
   const float* wr;    // [ncols]
   const int32_t* rm;  // [ncols] uint32 bit patterns
-  int32_t* bucket;    // [M, n_hashes]
-  int32_t* fp;
-  int M, ncols, n_hashes, mp, u, fp_bits;
+  const int32_t* __restrict__ tcnt;   // [n_hashes << u] bucket sizes, or null
+  const int32_t* __restrict__ thead;  // [n_hashes << u] chain heads, or null
+  int32_t* __restrict__ out0;         // [r, M, L]: cnt (tables) or bucket
+  int32_t* __restrict__ out1;         // [r, M, L]: head (tables only)
+  int32_t* __restrict__ fp;           // [r, M, L]
+  int M, ncols, n_hashes, L, mp, u, fp_bits;
 
   // bwr, wr, rm of the block's BN columns, staged with the first K slice
   template <class T>
@@ -126,8 +145,16 @@ struct HashEpilogue {
       uint32_t s = 0u;
       for (int k = 0; k < gph; ++k) s += part[r * kGroups + h * gph + k];
       const uint32_t hv = fmix32(s);
-      const size_t o = (size_t)row * n_hashes + j;
-      bucket[o] = (int32_t)(hv & ((1u << u) - 1u));
+      const uint32_t bucket = hv & ((1u << u) - 1u);
+      const int t = j / L;
+      const size_t o = ((size_t)t * M + row) * L + (j - t * L);
+      if (tcnt != nullptr) {
+        const size_t flat = ((size_t)j << u) + bucket;
+        out0[o] = __ldg(tcnt + flat);
+        out1[o] = __ldg(thead + flat);
+      } else {
+        out0[o] = (int32_t)bucket;
+      }
       fp[o] = (int32_t)((hv >> u) & ((1u << fp_bits) - 1u));
     }
   }
@@ -146,20 +173,27 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x [n, d] f32; a [n_hashes*mp, d] f32 (row c = projection column c, each
-// hash's columns padded to mp); bwr/wr [n_hashes*mp] f32; rm [n_hashes*mp]
-// i32 (uint32 bit patterns); bucket/fp [n, n_hashes] i32. All contiguous on
-// the current device. mp must be a multiple of 4 that divides 96.
+// x [n, d] f32; a [r*L*mp, d] f32 (row c = projection column c, each hash's
+// columns padded to mp); bwr/wr [r*L*mp] f32; rm [r*L*mp] i32 (uint32 bit
+// patterns). With tables, tcnt/thead [r, L, 2^u] i32 and the outputs
+// cnt = out0, head = out1, fp [r, n, L] i32; with tcnt = thead = null, the
+// outputs bucket = out0 and fp (out1 unused). All contiguous on the current
+// device. mp must be a multiple of 4 that divides 96.
 extern "C" int lsh_hash_launch(const float* x, const float* a, const float* bwr,
-                               const float* wr, const int32_t* rm, int32_t* bucket,
-                               int32_t* fp, int n, int d, int n_hashes, int mp, int u,
+                               const float* wr, const int32_t* rm, const int32_t* tcnt,
+                               const int32_t* thead, int32_t* out0, int32_t* out1,
+                               int32_t* fp, int n, int d, int r, int L, int mp, int u,
                                int fp_bits, cudaStream_t stream) {
   if (mp <= 0 || mp % 4 != 0 || Batch::BN % mp != 0) return (int)cudaErrorInvalidValue;
+  if ((tcnt == nullptr) != (thead == nullptr) || (tcnt != nullptr && out1 == nullptr))
+    return (int)cudaErrorInvalidValue;
   // the column operands are staged by 16-byte copies
   if ((reinterpret_cast<uintptr_t>(bwr) | reinterpret_cast<uintptr_t>(wr) |
        reinterpret_cast<uintptr_t>(rm)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const HashEpilogue epi{bwr, wr, rm, bucket, fp, n, n_hashes * mp, n_hashes, mp, u, fp_bits};
+  const int n_hashes = r * L;
+  const HashEpilogue epi{bwr, wr, rm, tcnt, thead, out0, out1, fp,
+                         n, n_hashes * mp, n_hashes, L, mp, u, fp_bits};
   const bool vec4 = fp32_tile::rows_aligned16(x, d) && fp32_tile::rows_aligned16(a, d);
   if (n <= Lone::BM && Lone::BN % mp == 0)
     return (int)run<Lone>(x, a, epi, n, d, vec4, stream);

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["fmix32", "combine_split", "true_div", "lsh_hash_ref",
-           "lsh_hash_all_radii_ref", "lsh_hash_packed_ref", "floor_margin"]
+           "lsh_hash_all_radii_ref", "lsh_hash_packed_ref", "table_lookup_ref",
+           "lsh_hash_lookup_ref", "floor_margin"]
 
 M32 = 0xFFFFFFFF
 
@@ -94,6 +95,26 @@ def lsh_hash_packed_ref(x, pack, *, u: int, fp_bits: int):
         proj[t, :, :, :m] = torch.einsum("nd,lmd->nlm", x, a[t, :, :m].contiguous())
     hj = torch.floor((proj + pack.bwr.view(r, 1, L, mp)) / pack.wr.view(r, 1, L, mp))
     return combine_split(hj, pack.rm.view(r, 1, L, mp), u, fp_bits)
+
+
+def table_lookup_ref(table_cnt, blocks_head, bucket_all, *, u: int):
+    """Bucket sizes and chain-head rows for every (radius, query, table) in
+    two gathers: tables [r, L, 2^u], bucket_all [r, Q, L] -> (cnt, head)
+    [r, Q, L], each read at the flat index ((t*L + l) << u) + bucket."""
+    r, _, L = bucket_all.shape
+    dev = bucket_all.device
+    tl = (torch.arange(r, device=dev, dtype=torch.int64)[:, None, None] * L
+          + torch.arange(L, device=dev, dtype=torch.int64)[None, None, :])
+    flat = (tl << u) + bucket_all.to(torch.int64)
+    return table_cnt.reshape(-1)[flat], blocks_head.reshape(-1)[flat]
+
+
+def lsh_hash_lookup_ref(x, pack, table_cnt, blocks_head, *, u: int, fp_bits: int):
+    """The plain version of ``ops.lsh_hash_lookup``: :func:`lsh_hash_packed_ref`,
+    then :func:`table_lookup_ref` at its buckets. x [N, D] -> (cnt, head,
+    fp) [r, N, L] int32, contiguous."""
+    bucket, fp = lsh_hash_packed_ref(x, pack, u=u, fp_bits=fp_bits)
+    return (*table_lookup_ref(table_cnt, blocks_head, bucket, u=u), fp)
 
 
 def floor_margin(x, a, b, *, w: float, radii) -> torch.Tensor:

@@ -29,6 +29,20 @@ threshold, so every call merges every row, as the first radius does);
 dense ``l2_distance`` at the exact scan's block, 256 x 16,384. A case
 whose wrapper the checkout lacks is skipped.
 
+The ``hash_stage`` cases time ``core.query.hash_stage`` (Step 1 of every
+plan: the hashes of the whole schedule and each bucket's table entries) in
+any checkout that has it with the signature ``(ix, queries, cfg)``, over a
+synthetic index of the hash family and the two tables [r, L, 2^u]: at
+Q = 256 on the SIFT1M family (m = 23, u = 18, fp_bits = 14) and at
+Q = 65,536 on the BIGANN-10M shard's (m = 27, u = 20, fp_bits = 12), r = 7,
+L = 32, D = 128. They print, beside the device span, the median host time
+of one call (``host_us``: the call alone, the card idle before it) and the
+device events one call runs. They are held to ``table_lookup`` over the
+plain hashes on every hash clear of a floor() boundary. The ``lsh_hash`` and
+``hash_stage`` lines carry ``digest``, a SHA-256 of the outputs (bucket and
+fp, or cnt, head and fp, as [r, Q, L] int32): inputs come from fixed seeds,
+so two checkouts whose digests match compute the same values bit for bit.
+
 The ``stage`` case times ``core.query._probe_radius_fused``, one radius of
 the fused plan, on the same inputs in any checkout that has that function
 with the signature ``(ix, queries, qnorm2, cnt, head, qfp, cfg, active_q)``:
@@ -42,6 +56,7 @@ call can read, output by output (a dict of outputs key by key).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import statistics
@@ -84,6 +99,30 @@ def wall_ms(torch, fn, iters=30, warmup=3):
     return statistics.median(times) * 1e3
 
 
+def host_us(torch, fn, iters=30, warmup=3):
+    """Median host time of fn() alone, in microseconds: the card is idle
+    before each call, and the time stops when fn returns (its launches
+    queued, not run)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def digest(torch, *outs) -> str:
+    """SHA-256 of int32 outputs laid out contiguous, in order."""
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def device_events(torch, fn):
     """(events, busy ms) on the device for one call of fn, by torch.profiler."""
     from torch.autograd import DeviceType
@@ -120,7 +159,8 @@ def probe_inputs(torch, gen, dev):
 
 def cases(torch, K, dev):
     """(kernel, libraries, shape, call, check) per timed case; check()
-    returns the largest error and raises AssertionError on a disagreement.
+    returns the largest error, or a dict of fields (max_abs_err among them),
+    and raises AssertionError on a disagreement.
     ``libraries`` are the kernel libraries the call must launch."""
     from repro_torch.kernels.lsh_hash.ops import hash_pack
     from repro_torch.kernels.lsh_hash.ref import floor_margin
@@ -144,9 +184,11 @@ def cases(torch, K, dev):
             safe = floor_margin(x, a, b, w=hkw["w"], radii=hkw["radii"]) > MARGIN
             bad = int((safe & ((bk != bk_p) | (fp != fp_p))).sum())
             assert bad == 0, f"{bad} hashes clear of a boundary disagree"
-            return 0.0
+            return dict(max_abs_err=0.0, digest=digest(torch, bk, fp))
         yield ("lsh_hash", ("lsh_hash",), dict(Q=n, r=r, L=L, m=m, D=D),
                lambda x=x: K.lsh_hash_all_radii(x, a, b, rm, **hkw, pack=pack), check_hash)
+
+    yield from hash_stage_cases(torch, K, dev)
 
     P = probe_inputs(torch, gen, dev)
     pargs = (P["cnt"], P["head"], P["qfp"], P["active"], P["ids"], P["fps"])
@@ -206,6 +248,50 @@ def cases(torch, K, dev):
            lambda: K.l2_distance(q, xs), check_dense)
 
     yield stage_case(torch, P, pshape)
+
+
+class _Index:
+    """The fields of an index that the hash stage reads (weakly referable,
+    as the hash-pack cache needs)."""
+
+
+def hash_stage_cases(torch, K, dev):
+    """``core.query.hash_stage`` at the batch cell's Q and the sharded cell's."""
+    from repro_torch.core import query as tq
+    from repro_torch.kernels.lsh_hash.ref import floor_margin
+    if not hasattr(tq, "hash_stage"):
+        return
+    r, L, D = 7, 32, 128
+    for Q, m, u, fp_bits in ((256, 23, 18, 14), (65_536, 27, 20, 12)):
+        gen = torch.Generator(device=dev).manual_seed(Q + m)
+        ix = _Index()
+        ix.a = torch.randn((r, L, m, D), generator=gen, device=dev)
+        ix.b = torch.rand((r, L, m), generator=gen, device=dev)
+        ix.rm = torch.randint(-2**31, 2**31 - 1, (r, L, m), generator=gen, device=dev,
+                              dtype=torch.int32) | 1
+        ix.table_cnt = torch.randint(0, 200, (r, L, 1 << u), generator=gen, device=dev,
+                                     dtype=torch.int32)
+        ix.blocks_head = torch.randint(1, 2**31 - 1, (r, L, 1 << u), generator=gen,
+                                       device=dev, dtype=torch.int32)
+        ix.blocks_head[ix.table_cnt == 0] = -1
+        cfg = tq.QueryConfig(L=L, m=m, u=u, fp_bits=fp_bits, w=4.0, c=2.0,
+                             radii=tuple(2.0 ** t for t in range(r)), S=64, block_objs=99,
+                             k=10)
+        x = torch.randn((Q, D), generator=gen, device=dev) * 3
+
+        def check(ix=ix, cfg=cfg, x=x):
+            cnt, head, fp = tq.hash_stage(ix, x, cfg)
+            bk_p, fp_p = K.lsh_hash_all_radii_ref(x, ix.a, ix.b, ix.rm, w=cfg.w,
+                                                  radii=cfg.radii, u=cfg.u,
+                                                  fp_bits=cfg.fp_bits)
+            cnt_p, head_p = tq.table_lookup(ix, bk_p, cfg)
+            safe = floor_margin(x, ix.a, ix.b, w=cfg.w, radii=cfg.radii) > MARGIN
+            bad = int((safe & ((cnt != cnt_p) | (head != head_p) | (fp != fp_p))).sum())
+            assert bad == 0, f"{bad} lookups clear of a boundary disagree"
+            return dict(max_abs_err=0.0, digest=digest(torch, cnt, head, fp))
+        yield ("hash_stage", ("lsh_hash",),
+               dict(Q=Q, r=r, L=L, m=m, D=D, u=u, fn="core.query.hash_stage"),
+               lambda ix=ix, cfg=cfg, x=x: tq.hash_stage(ix, x, cfg), check)
 
 
 def stage_case(torch, P, pshape):
@@ -281,7 +367,7 @@ def main(argv=None) -> int:
     for kernel, libs, shape, call, check in cases(torch, K, dev):
         before = [launchers[n].launches for n in libs]
         try:
-            err = check()
+            checked = check()
             torch.cuda.synchronize()
             assert all(launchers[n].launches > b for n, b in zip(libs, before)), \
                 f"no launch of {libs}"
@@ -290,8 +376,11 @@ def main(argv=None) -> int:
             ok = False
             continue
         out = dict(src=args.src, kernel=kernel, shape=shape,
-                   ms=median_ms(torch, call, flush), max_abs_err=err)
-        if kernel == "stage":
+                   ms=median_ms(torch, call, flush))
+        out.update(checked if isinstance(checked, dict) else dict(max_abs_err=checked))
+        if kernel in ("lsh_hash", "hash_stage"):
+            out["host_us"] = host_us(torch, call)
+        if kernel in ("stage", "hash_stage"):
             out["wall_ms"] = wall_ms(torch, call)
             out["device_events"], out["device_busy_ms"] = device_events(torch, call)
         print(json.dumps(out), flush=True)

@@ -5,9 +5,9 @@ and the DRAM tier stay resident on the device, bucket block rows live on
 disk, and a query batch alternates device compute with host block fetches:
 
   1. **Setup (device).** ``core.query.hash_stage`` — the fused plan's own
-     call: one ``lsh_hash`` launch hashes the whole radius schedule and two
-     gathers look up every ``(t, q, l)`` bucket's size and chain head, so
-     external and fused hash identically on the card. The three [r, Q, L]
+     call: one ``lsh_hash`` launch hashes the whole radius schedule and, in
+     its epilogue, looks up every ``(t, q, l)`` bucket's size and chain head,
+     so external and fused hash identically on the card. The three [r, Q, L]
      results then come to the host once per batch (one ``.cpu()`` each).
   2. **Chain walk (host, per radius rung).** Block rows are fetched through
      the pluggable :class:`~repro_torch.storage.blockstore.BlockStore`,

@@ -27,6 +27,11 @@ The radius fold (``topk_merge``) replaces no Pallas kernel: its plain
 version is held to a brute-force numpy merge here, and the fused plans that
 fold through it to the oracle in ``tests/test_torch_query.py``.
 
+The query plans' Step 1 (``lsh_hash_lookup``) is the hash kernel with the
+table lookup in its epilogue: its plain version is held to the plain
+hashes followed by the plain lookup, and bad tables are refused before any
+launch on either device.
+
 CUDA cases (marker ``cuda``): each hand-written kernel vs its plain version
 on the card, by the same rules (the fold bit for bit); they skip where no
 card is present.
@@ -38,7 +43,8 @@ import torch
 from repro_torch.kernels import (INVALID, KERNELS, blockify_entries, bucket_probe_ref,
                                  l2_distance, l2_distance_by_id, l2_distance_by_id_ref,
                                  l2_distance_gathered_ref, lsh_hash_all_radii,
-                                 lsh_hash_all_radii_ref, lsh_hash_ref, probe_append,
+                                 lsh_hash_all_radii_ref, lsh_hash_lookup,
+                                 lsh_hash_lookup_ref, lsh_hash_ref, probe_append,
                                  probe_append_ref, topk_merge, topk_merge_ref)
 from repro_torch.kernels.lsh_hash import ops as hash_ops
 from repro_torch.kernels.lsh_hash.ops import hash_pack, index_hash_pack, packed_width
@@ -579,12 +585,81 @@ def test_topk_merge_refuses_bad_arguments():
         topk_merge(state, cand_id, cand_d2, cnt, blocks, count, **dict(kw, t=4))
 
 
+def _tables(r, L, u, device, *, empty=0.4):
+    """Random hash tables [r, L, 2^u] int32: bucket sizes and chain heads,
+    a share ``empty`` of the buckets empty (size 0, head -1)."""
+    gen = torch.Generator().manual_seed(r * 1000 + L * 10 + u)
+    cnt = torch.randint(1, 300, (r, L, 1 << u), generator=gen, dtype=torch.int32)
+    head = torch.randint(1, 2**31 - 1, (r, L, 1 << u), generator=gen, dtype=torch.int32)
+    hole = torch.rand((r, L, 1 << u), generator=gen) < empty
+    cnt[hole], head[hole] = 0, -1
+    return cnt.to(device), head.to(device)
+
+
+@pytest.mark.parametrize("r,L,m,u,fp_bits", [(2, 5, 6, 10, 8), (3, 4, 23, 18, 14),
+                                             (2, 3, 27, 20, 12)])
+def test_lsh_hash_lookup_plain_is_the_hash_then_the_lookup(r, L, m, u, fp_bits):
+    """On the CPU the lookup entry is the plain hashes over the pack, then
+    each bucket's row of the tables, empty buckets (-1) included, bit for
+    bit; each output a contiguous [r, N, L] tensor."""
+    n, d = 9, 24
+    a, b, rm = _t(*_family(r, L, m, d))
+    x = torch.from_numpy(RNG.normal(size=(n, d)).astype(np.float32) * 3)
+    radii = tuple(2.0 ** t for t in range(r))
+    pack = hash_pack(a, b, rm, w=4.0, radii=radii)
+    tcnt, thead = _tables(r, L, u, "cpu")
+    cnt, head, fp = lsh_hash_lookup(x, pack, tcnt, thead, u=u, fp_bits=fp_bits)
+    bk_p, fp_p = lsh_hash_packed_ref(x, pack, u=u, fp_bits=fp_bits)
+    rr, ll = torch.meshgrid(torch.arange(r), torch.arange(L), indexing="ij")
+    want_cnt = tcnt[rr[:, None, :], ll[:, None, :], bk_p.long()]
+    want_head = thead[rr[:, None, :], ll[:, None, :], bk_p.long()]
+    for got, want in ((cnt, want_cnt), (head, want_head), (fp, fp_p)):
+        assert got.shape == (r, n, L) and got.dtype == torch.int32 and got.is_contiguous()
+        assert torch.equal(got, want)
+    assert bool((head == -1).any()) and bool((cnt == 0).any())
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("fault", ["int64 table", "short table", "tables of another u",
+                                   "strided table", "x of another D", "u + fp_bits > 32"])
+def test_lsh_hash_lookup_refuses_bad_tables(device, fault):
+    """Tables of the wrong dtype, shape or layout, an x of another width and
+    bits past 32 raise on either device before any launch."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no "
+                    "CPU or interpret mode")
+    r, L, m, d, u = 2, 3, 6, 16, 10
+    a, b, rm = _t(*_family(r, L, m, d), device=device)
+    pack = hash_pack(a, b, rm, w=4.0, radii=(1.0, 2.0))
+    tcnt, thead = _tables(r, L, u, device)
+    x = torch.zeros((5, d), device=device)
+    kw = dict(u=u, fp_bits=8)
+    if fault == "int64 table":
+        tcnt = tcnt.long()
+    elif fault == "short table":
+        thead = thead[:, :2].contiguous()
+    elif fault == "tables of another u":
+        kw["u"] = u + 1
+    elif fault == "strided table":
+        tcnt = tcnt.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "x of another D":
+        x = torch.zeros((5, d + 4), device=device)
+    else:
+        kw["fp_bits"] = 32 - u + 1
+    before = KERNELS[0].launches
+    with pytest.raises(ValueError, match="lsh_hash"):
+        lsh_hash_lookup(x, pack, tcnt, thead, **kw)
+    assert KERNELS[0].launches == before
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     """On the CPU every wrapper runs its plain version: no launch counted."""
     before = [k.launches for k in KERNELS]
     x = torch.zeros((3, 8))
     a, b, rm = _t(*_family(2, 2, 3, 8))
     lsh_hash_all_radii(x, a, b, rm, w=4.0, radii=(1.0, 2.0), u=10, fp_bits=8)
+    tables = _tables(2, 2, 10, "cpu")
+    lsh_hash_lookup(x, hash_pack(a, b, rm, w=4.0, radii=(1.0, 2.0)), *tables, u=10, fp_bits=8)
     cnt, head, qfp, active, ids_b, fps_b = _probe_inputs(3, 4, 2, 8)
     buf, _, _ = probe_append(cnt, head, qfp, active, ids_b, fps_b, block_objs=8,
                              max_chain=2, S=8, sbuf=8)
@@ -614,6 +689,7 @@ def test_cuda_lsh_hash_kernel_matches_plain(cuda, n, r, L, m, d):
     bk, fp = lsh_hash_all_radii(x, a, b, rm, **kw)
     torch.cuda.synchronize()
     assert KERNELS[0].launches == launches + 1
+    assert bk.shape == (r, n, L) and bk.is_contiguous() and fp.is_contiguous()
     bk_p, fp_p = lsh_hash_all_radii_ref(x, a, b, rm, **kw)
     _assert_hashes_agree(bk, fp, bk_p, fp_p, floor_margin(x, a, b, w=4.0, radii=radii))
 
@@ -624,6 +700,53 @@ def test_cuda_lsh_hash_refuses_m_past_the_block(cuda):
     with pytest.raises(ValueError, match="at most 96"):
         lsh_hash_all_radii(torch.zeros((2, 8), device=cuda), a, b, rm,
                            w=4.0, radii=(1.0,), u=10, fp_bits=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [2, 3, 5, 256])
+@pytest.mark.parametrize("m", [6, 23, 27])
+def test_cuda_lsh_hash_lookup_matches_plain(cuda, Q, m):
+    """One launch writes (cnt, head, fp) [r, Q, L]: on every hash clear of a
+    floor() boundary equal to ``table_lookup`` over the plain hashes, empty
+    buckets (head -1) included, at u + fp_bits = 32; Q = 2 .. 5 straddles
+    the lone tile (N <= 4), m = 6, 23, 27 pack 8, 24 and 32 columns (the
+    last only on the batch tile). The bucket entry shares the epilogue: its
+    fp equals the lookup's, and the plain lookup at its buckets gives cnt
+    and head, bit for bit everywhere. A lone query's row equals the same
+    row of the batch, bit for bit."""
+    import types
+    from repro_torch.core.query import table_lookup
+    r, L, d, u, fp_bits = 3, 8, 128, 18, 14
+    a, b, rm = _t(*_family(r, L, m, d), device=cuda)
+    x = torch.from_numpy(RNG.normal(size=(Q, d)).astype(np.float32) * 3).to(cuda)
+    radii = tuple(2.0 ** t for t in range(r))
+    hkw = dict(w=4.0, radii=radii, u=u, fp_bits=fp_bits)
+    pack = hash_pack(a, b, rm, w=4.0, radii=radii)
+    tcnt, thead = _tables(r, L, u, cuda)
+    ix = types.SimpleNamespace(table_cnt=tcnt, blocks_head=thead)
+    cfg = types.SimpleNamespace(radii=radii, L=L, u=u)
+    launches = KERNELS[0].launches
+    cnt, head, fp = lsh_hash_lookup(x, pack, tcnt, thead, u=u, fp_bits=fp_bits)
+    torch.cuda.synchronize()
+    assert KERNELS[0].launches == launches + 1
+    for out in (cnt, head, fp):
+        assert out.shape == (r, Q, L) and out.dtype == torch.int32 and out.is_contiguous()
+    bk_p, fp_p = lsh_hash_all_radii_ref(x, a, b, rm, **hkw)
+    cnt_p, head_p = table_lookup(ix, bk_p, cfg)
+    safe = floor_margin(x, a, b, w=4.0, radii=radii) > MARGIN
+    assert bool(safe.float().mean() > 0.5)
+    for got, want, name in ((cnt, cnt_p, "cnt"), (head, head_p, "head"), (fp, fp_p, "fp")):
+        bad = int((safe & (got != want)).sum())
+        assert bad == 0, f"{bad} {name} clear of every boundary disagree"
+    assert bool((head == -1).any()) and bool((head != -1).any())
+    bk, fp_b = lsh_hash_all_radii(x, a, b, rm, **hkw, pack=pack)
+    assert bk.is_contiguous() and fp_b.is_contiguous()
+    assert torch.equal(fp_b, fp)
+    cnt_b, head_b = table_lookup(ix, bk, cfg)
+    assert torch.equal(cnt_b, cnt) and torch.equal(head_b, head)
+    lone = lsh_hash_lookup(x[-1:].contiguous(), pack, tcnt, thead, u=u, fp_bits=fp_bits)
+    for got, want in zip(lone, (cnt, head, fp)):
+        assert torch.equal(got, want[:, -1:])
 
 
 @pytest.mark.cuda

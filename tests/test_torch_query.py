@@ -12,7 +12,11 @@ reference on an index carried across by ``IndexArrays.from_numpy``.
 * the io_count replay of the port's probe trace == its I/O counters;
 * the fused and external plans fold each radius through ``_update_state``:
   on the card one ``topk_merge`` launch a ``query.merge`` span (a rung),
-  and no CUDA tensor reaches the plain fold; on the CPU no launch.
+  and no CUDA tensor reaches the plain fold; on the CPU no launch;
+* the hash stage is one ``lsh_hash`` launch a ``query.hash`` span on the
+  card (fused, external and in-process sharded plans), with no other
+  launch inside the span; on the CPU its plain version is the plain hashes
+  followed by ``table_lookup``, bit for bit, and launches nothing.
 """
 import dataclasses
 
@@ -409,6 +413,106 @@ def test_cuda_fused_and_external_fold_by_one_merge_launch_a_radius(tmp_path, mon
         assert kern.launches - before == len(ext.last_plan_stats.rungs) > 0
     _assert_identical(got, fus)
     assert reached == []
+
+
+def test_hash_stage_plain_is_table_lookup_over_plain_hashes(engine, clustered_data):
+    """On the CPU the hash stage equals ``table_lookup`` over the plain
+    hashes of the index's pack, bit for bit, in contiguous [r, Q, L]
+    tensors, and launches no kernel."""
+    from repro_torch.kernels.lsh_hash.ops import index_hash_pack
+    from repro_torch.kernels.lsh_hash.ref import lsh_hash_packed_ref
+
+    cfg = engine.config(k=3)
+    ix = engine.arrays(cfg.block_objs)
+    queries, _ = tq._prep_queries(torch.from_numpy(np.array(clustered_data["queries"])))
+    before = [k.launches for k in KERNELS]
+    cnt, head, qfp = tq.hash_stage(ix, queries, cfg)
+    assert [k.launches for k in KERNELS] == before
+    bk_p, qfp_p = lsh_hash_packed_ref(queries, index_hash_pack(ix, w=cfg.w, radii=cfg.radii),
+                                      u=cfg.u, fp_bits=cfg.fp_bits)
+    cnt_p, head_p = tq.table_lookup(ix, bk_p, cfg)
+    shape = (len(cfg.radii), queries.shape[0], cfg.L)
+    for got, want in ((cnt, cnt_p), (head, head_p), (qfp, qfp_p)):
+        assert got.shape == shape and got.dtype == torch.int32 and got.is_contiguous()
+        assert torch.equal(got, want)
+    assert bool((head == -1).any()) and bool((head >= 0).any())
+
+
+_LAUNCH_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def _hash_span_launches(prof):
+    """Per ``query.hash`` range of a profile, the runtime calls inside it
+    that put work on the card (kernel launches, copies, sets)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ranges = [e for e in events if e.name == "query.hash"]
+    calls = [e for e in events if e.name.startswith("cu")
+             and any(w in e.name for w in _LAUNCH_CALLS)]
+    return [[c.name for c in calls if c.thread == r.thread
+             and r.time_range.start <= c.time_range.start
+             and c.time_range.end <= r.time_range.end] for r in ranges]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["fused", "external", "sharded"])
+def test_cuda_hash_stage_is_one_launch_a_span(plan, tmp_path):
+    """On the card every ``query.hash`` span (the fused plan's, the external
+    plan's set-up, each shard's fused body in the one-process sharded plan)
+    launches ``lsh_hash`` exactly once, and ``torch.profiler`` sees no other
+    launch, copy or set inside the span; the stage's outputs are the
+    contiguous [r, Q, L] tensors the probe stage reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import E2LSHoS
+    from repro_torch.core.distributed import build_sharded_index
+    from repro_torch.data import make_dataset
+    from repro_torch.storage import load_external
+
+    ds = make_dataset("sift", n=20_000, n_queries=64, seed=1)
+    (kern,) = [k for k in KERNELS if k.name == "lsh_hash"]
+    ext = None
+    if plan == "sharded":
+        engine = SearchEngine(build_sharded_index(ds.db, 2, gamma=0.8, max_L=32, seed=3,
+                                                  device="cuda"))
+    else:
+        idx = E2LSHoS.build(ds.db, gamma=0.8, max_L=32, device="cuda")
+        engine = SearchEngine(idx)
+        if plan == "external":
+            idx.index.spill(tmp_path / "ix.e2l")
+            ext = load_external(tmp_path / "ix.e2l", backend="mem", device="cuda")
+            engine = SearchEngine(ext)
+    try:
+        def run():
+            return engine.query(ds.queries, plan=plan, k=3)
+        run()                                   # loads the kernels, builds the packs
+        torch.cuda.synchronize()
+        before = kern.launches
+
+        def profiled():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            return prof
+        prof, spans = _traced(profiled, record_function=True)
+        hashes = sum(sp.name == "query.hash" for sp in spans)
+        assert hashes == (2 if plan == "sharded" else 1)
+        assert kern.launches - before == hashes
+        inside = _hash_span_launches(prof)
+        assert len(inside) == hashes
+        assert all(len(names) == 1 and "Launch" in names[0] for names in inside), inside
+    finally:
+        if ext is not None:
+            ext.close()
+    if plan == "fused":
+        cfg, ix = engine.config(k=3), engine.arrays()
+        qt, _ = tq._prep_queries(torch.from_numpy(np.array(ds.queries)).cuda())
+        outs = tq.hash_stage(ix, qt, cfg)
+        assert all(o.shape == (len(cfg.radii), 64, cfg.L) and o.is_contiguous()
+                   for o in outs)
 
 
 def test_spans_open_profiler_ranges_with_record_function(engine, clustered_data):
